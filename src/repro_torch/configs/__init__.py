@@ -1,0 +1,23 @@
+"""Architecture registry: the archs the port runs (``<arch>-smoke`` too)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+
+_ARCH_MODULES = {
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch.endswith("-smoke"):
+        return reduced(get_config(arch[: -len("-smoke")]))
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    cfg: ModelConfig = mod.CONFIG
+    cfg.validate()
+    return cfg

@@ -1,0 +1,21 @@
+"""qwen2-0.5b [arXiv:2407.10671; hf Qwen/Qwen2-0.5B].
+
+24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151936; QKV bias; tied embed.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=896,
+    num_heads=14,
+    num_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151936,
+    attn_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    norm_eps=1e-6,
+)

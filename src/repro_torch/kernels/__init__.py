@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+Each subpackage ships ``ops.py`` (the wrapper: the kernel on CUDA tensors,
+the plain version on CPU tensors, a launch counter) and ``ref.py`` (the
+plain PyTorch version).  Sources are in ``csrc/``; ``build.py`` compiles
+them with nvcc at first use and loads them with ctypes.
+
+flash_attention/   causal GQA prefill attention (replaces the Pallas
+                   flash_attention kernel)
+paged_attention/   decode attention over block-table paged KV (replaces
+                   the Pallas paged_attention kernel)
+"""

@@ -1,0 +1,139 @@
+"""Parameter specs, initialisation and conversion from the reference tree.
+
+A model declares its parameters as a tree (dicts and lists) of
+:class:`ParamSpec` leaves.  ``init`` turns the tree into tensors on a
+device, drawing from an explicit ``torch.Generator``.  The port keeps one
+entry per layer (``params["layers"][i]``) where the reference stacks layer
+groups along a leading axis for its ``lax.scan``; ``from_jax`` unstacks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | const
+    scale: float = 1.0
+    fan_in: int | None = None   # contracted input size of a fan_in matrix
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _draw(generator: torch.Generator, s: ParamSpec, std: float, device) -> torch.Tensor:
+    x = torch.randn(s.shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return x.mul_(std).to(device=device, dtype=s.dtype)
+
+
+def init(generator: torch.Generator, specs, device):
+    """Materialise real tensors on ``device``, leaf by leaf in tree order.
+
+    ``embed``/``normal`` draw with std ``scale``; ``fan_in`` with
+    ``scale / sqrt(fan_in)``, where fan_in is the spec's own (the size of
+    the dims a matmul contracts) or else the second-to-last dim (the last
+    of a vector).  The reference always takes the second-to-last dim, which
+    for the (D, heads, head_dim) attention weights is the head count."""
+
+    def _init(s: ParamSpec):
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=device)
+        if s.init == "const":
+            return torch.full(s.shape, s.scale, dtype=s.dtype, device=device)
+        if s.init in ("embed", "normal"):
+            return _draw(generator, s, s.scale, device)
+        fan_in = s.fan_in or (s.shape[-2] if len(s.shape) >= 2 else s.shape[-1])
+        return _draw(generator, s, s.scale / math.sqrt(max(fan_in, 1)), device)
+
+    return tree_map(_init, specs)
+
+
+def count_params(specs) -> int:
+    return int(sum(math.prod(s.shape) for s in tree_leaves(specs)))
+
+
+def count_bytes(specs) -> int:
+    return int(sum(math.prod(s.shape) * s.dtype.itemsize for s in tree_leaves(specs)))
+
+
+# ---------------------------------------------------------------------------
+# conversion from the reference's parameter tree
+# ---------------------------------------------------------------------------
+
+def group_period(cfg: ModelConfig) -> int:
+    """Length of the reference's repeating layer group (its scan unit)."""
+    p = 1
+    if cfg.attn_every:
+        p = math.lcm(p, cfg.attn_every)
+    if cfg.local_ratio:
+        p = math.lcm(p, cfg.local_ratio + 1)
+    if cfg.num_experts:
+        p = math.lcm(p, cfg.moe_every)
+    return p
+
+
+def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy -> torch, bf16 included: a bf16 array (``ml_dtypes.bfloat16``)
+    is reinterpreted through its uint16 bits, which ``torch.from_numpy``
+    accepts."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def from_jax(tree: dict[str, Any], cfg: ModelConfig, device="cpu") -> dict:
+    """The reference's parameter tree (leaves as numpy arrays) -> the port's.
+
+    ``tree["blocks"]["m{j}"]`` holds layer ``g * period + j`` at index ``g``
+    of its leading axis; ``tree["tail"]["t{i}"]`` holds a remainder layer
+    ``i``.  Both become ``params["layers"][i]``."""
+    period = group_period(cfg)
+    groups = cfg.num_layers // period
+
+    def conv(t):
+        return tree_map(lambda a: to_tensor(a, device), t)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        if i < groups * period:
+            g, j = divmod(i, period)
+            layers.append(tree_map(lambda a, g=g: to_tensor(a[g], device),
+                                   tree["blocks"][f"m{j}"]))
+        else:
+            layers.append(conv(tree["tail"][f"t{i}"]))
+    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
+            "layers": layers}

@@ -1,0 +1,77 @@
+"""The CUDA kernels of the PyTorch port against their plain versions, on a
+GPU.  Marked ``gpu``; each test skips without a CUDA device.  No JAX import,
+so the file runs on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from torch_kernel_cases import (FLASH_CASES, PAGED_CASES, TOL_FLASH, TOL_PAGED,
+                                flash_inputs, paged_inputs)
+
+
+def _close(got: torch.Tensor, ref: torch.Tensor, tol: float):
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the CUDA kernels have no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,d,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_on_gpu(B, Sq, Skv, H, KV, d, window, dtype):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+               for x in flash_inputs(B, Sq, Skv, H, KV, d))
+    n0 = flash_ops.launches
+    got = flash_ops.attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == n0 + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True, window=window).transpose(1, 2)
+    _close(got, ref, TOL_FLASH[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,d,nb,bs,maxb", PAGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_matches_plain_on_gpu(B, H, KV, d, nb, bs, maxb, dtype):
+    _need_cuda()
+    q, kp, vp, table, ctx = paged_inputs(B, H, KV, d, nb, bs, maxb)
+    dt = getattr(torch, dtype)
+    args = (torch.from_numpy(q).to(dt).cuda(), torch.from_numpy(kp).to(dt).cuda(),
+            torch.from_numpy(vp).to(dt).cuda(), torch.from_numpy(table).cuda(),
+            torch.from_numpy(ctx).cuda())
+    n0 = paged_ops.launches
+    got = paged_ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_ops.launches == n0 + 1
+    _close(got, paged_attention_ref(*args), TOL_PAGED[dtype])
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    _need_cuda()
+    q = torch.zeros((2, 4, 16), device="cuda", dtype=torch.float16)
+    pool = torch.zeros((4, 8, 1, 16), device="cuda", dtype=torch.float16)
+    tbl = torch.zeros((2, 3), dtype=torch.int32, device="cuda")
+    ctx = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        paged_ops.paged_decode_attention(q, pool, pool, tbl, ctx)
+    with pytest.raises(TypeError):
+        paged_ops.paged_decode_attention(q.float(), pool.float(), pool.float(),
+                                         tbl.long(), ctx)
+    x = torch.zeros((1, 8, 2, 256), device="cuda")
+    with pytest.raises(ValueError):
+        flash_ops.attention(x, x, x)
