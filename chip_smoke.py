@@ -303,49 +303,81 @@ def serve(cfg, params, backend: str):
 
 def compare_paths(cfg, params, dtype):
     """Kernel path vs use_kernels=False on one prefill + 4 paged decode
-    steps, same weights: max |diff| / max |logits| per call."""
+    steps, same weights: max |diff| / max |logits| per call.
+
+    In bf16 it also reads two deliberately faulty kernel paths against the
+    plain one on the same decode steps (a report, not a check), to show
+    whether the bar parts a fault from rounding: the paged kernel given a
+    context one token short (the newest key dropped), and one cut to whole
+    pages (a partial last page dropped)."""
+    import repro_torch.models.lm as lm_mod
     from repro_torch.configs.perf import BASELINE, with_overrides
     from repro_torch.models import params as P
     from repro_torch.models.lm import LM
 
     if dtype == torch.float32:
         params = P.tree_map(lambda t: t.float(), params)
-    models = {on: LM(cfg, with_overrides(BASELINE, use_kernels=on))
-              for on in (True, False)}
+    kernel = LM(cfg, with_overrides(BASELINE, use_kernels=True))
+    models = {"kernel": kernel,
+              "plain": LM(cfg, with_overrides(BASELINE, use_kernels=False))}
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     B, S, bs = 4, 128, 16
+    faults = {}
+    if dtype == torch.bfloat16:
+        faults = {"newest_key_dropped": lambda c: (c - 1).clamp(min=0),
+                  "partial_page_dropped": lambda c: c // bs * bs}
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
     true_len = torch.tensor([128, 100, 77, 12], device=DEV)
     rels = []
+    fault_rels = {name: [] for name in faults}
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
 
-    logits = {on: m.prefill(params, {"tokens": toks}, 256, true_len=true_len)[0]
-              for on, m in models.items()}
-    rels.append(rel(logits[True], logits[False]))
+    real_paged = lm_mod.paged_decode_attention
+
+    def decode(name, *args):
+        if name not in faults:
+            return models[name].decode_step_paged(*args)[0]
+        cut = faults[name]
+        lm_mod.paged_decode_attention = lambda q, k, v, t, c, **kw: real_paged(
+            q, k, v, t, cut(c).to(torch.int32), **kw)
+        try:
+            return kernel.decode_step_paged(*args)[0]
+        finally:
+            lm_mod.paged_decode_attention = real_paged
+
+    logits = {n: m.prefill(params, {"tokens": toks}, 256, true_len=true_len)[0]
+              for n, m in models.items()}
+    rels.append(rel(logits["kernel"], logits["plain"]))
 
     max_blk = 256 // bs
     table = torch.arange(B * max_blk, dtype=torch.int32,
                          device=DEV).view(B, max_blk)
     pools, last = {}, {}
-    for on, m in models.items():
-        pools[on] = P.init(None, m.paged_cache_specs(B * max_blk, bs), DEV)
-        last[on] = m.prefill_chunk_paged(params, toks, torch.zeros(B, dtype=torch.long,
-                                                                   device=DEV),
-                                         true_len, pools[on], table)[0]
+    for n in [*models, *faults]:
+        m = models.get(n, kernel)
+        pools[n] = P.init(None, m.paged_cache_specs(B * max_blk, bs), DEV)
+        last[n] = m.prefill_chunk_paged(params, toks, torch.zeros(B, dtype=torch.long,
+                                                                  device=DEV),
+                                        true_len, pools[n], table)[0]
     pos = true_len.clone()
-    nxt = last[True].argmax(-1)
+    nxt = last["kernel"].argmax(-1)
     for _ in range(4):
-        out = {on: m.decode_step_paged(params, nxt[:, None], pos, pools[on], table)[0]
-               for on, m in models.items()}
-        rels.append(rel(out[True], out[False]))
-        check(bool(torch.isfinite(out[True]).all()), "non-finite logits")
-        nxt = out[True].argmax(-1)
+        out = {n: decode(n, params, nxt[:, None], pos, pools[n], table)
+               for n in pools}
+        rels.append(rel(out["kernel"], out["plain"]))
+        for n in faults:
+            fault_rels[n].append(rel(out[n], out["plain"]))
+        check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
+        nxt = out["kernel"].argmax(-1)
         pos = pos + 1
     worst = max(rels)
     log(f"[serve] kernel vs plain logits {str(dtype)[6:]}: rel per call "
         f"{[f'{r:.2e}' for r in rels]} (bar {LOGIT_REL_TOL[dtype]})")
+    for n, r in fault_rels.items():
+        log(f"[serve] faulty kernel path ({n}) vs plain logits "
+            f"{str(dtype)[6:]}: rel per decode step {[f'{x:.2e}' for x in r]}")
     check(worst <= LOGIT_REL_TOL[dtype],
           f"kernel-path logits off by rel {worst:.3e} in {dtype}")
 

@@ -13,9 +13,6 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class PerfConfig:
-    # attention on the plain path
-    q_chunk: int = 512
-    attn_impl: str = "full"        # full | triangle (causal chunk skipping)
     # kernels: dense prefill -> flash attention, paged decode -> paged
     # attention.  On CPU tensors the kernel ops run their plain versions.
     use_kernels: bool = True

@@ -127,40 +127,22 @@ def _mha_chunk(q, k, v, mask, scale):
 
 
 def attention_full(q, k, v, *, causal: bool, window: int = 0,
-                   q_chunk: int = 512, impl: str = "triangle",
                    scale: float | None = None):
-    """Chunked attention over full sequences (prefill).
+    """Attention over full sequences (prefill); prompts are bounded by the
+    largest prefill bucket, so one slab covers every query.
 
     q: (B,Sq,H,d); k,v: (B,Skv,KV,d), q positions == kv positions."""
-    B, Sq, H, d = q.shape
+    Sq, d = q.shape[1], q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    cq = min(q_chunk, Sq)
-    n = math.ceil(Sq / cq)
-    outs = []
-    for i in range(n):
-        q0, q1 = i * cq, min((i + 1) * cq, Sq)
-        qi = q[:, q0:q1]
-        if not causal:
-            ki, vi, k0 = k, v, 0
-        elif window:
-            k0 = max(0, q1 - window - (q1 - q0))
-            ki, vi = k[:, k0:q1], v[:, k0:q1]
-        elif impl == "triangle":
-            k0 = 0
-            ki, vi = k[:, :q1], v[:, :q1]
-        else:  # full kv slab (baseline)
-            k0 = 0
-            ki, vi = k, v
-        mask = None
-        if causal:
-            qpos = torch.arange(q0, q1, device=q.device)[:, None]
-            kpos = torch.arange(k0, k0 + ki.shape[1], device=q.device)[None, :]
-            m = kpos <= qpos
-            if window:
-                m &= kpos > qpos - window
-            mask = m[None]
-        outs.append(_mha_chunk(qi, ki, vi, mask, scale))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    mask = None
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        mask = mask[None]
+    return _mha_chunk(q, k, v, mask, scale)
 
 
 def attention_decode(q, k_cache, v_cache, kv_mask, scale: float | None = None):

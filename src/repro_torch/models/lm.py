@@ -141,8 +141,7 @@ class LM:
             if perf.use_kernels:
                 ctx = flash_attention(q, k, v, causal=True, window=0)
             else:
-                ctx = L.attention_full(q, k, v, causal=True, q_chunk=perf.q_chunk,
-                                       impl=perf.attn_impl)
+                ctx = L.attention_full(q, k, v, causal=True)
             B = h.shape[0]
             dt = torch_dtype(perf.kv_dtype)
             empty = {n: torch.zeros((B, max_len, cfg.num_kv_heads, cfg.head_dim),
