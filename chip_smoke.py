@@ -4,18 +4,23 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Three phases, each fatal on failure:
+Four phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel) and print the card's name and
            power limit;
-2. kernels hold each kernel against its plain PyTorch version at qwen2-0.5b
-           shapes (14 heads over 2 kv heads, head_dim 64) in bf16 and f32,
-           then time kernel, plain version and bound with CUDA events;
-3. serve   full-width qwen2-0.5b (random bf16 weights, seed 0) behind
+2. kernels hold each kernel against its plain PyTorch version in bf16 and
+           f32, the attention kernels at qwen2-0.5b shapes (14 heads over 2
+           kv heads, head_dim 64) and the SSD scan at mamba2-780m's (48
+           heads, P 64, N 128, one group), then time kernel, plain version
+           and bound with CUDA events;
+3. qwen2   full-width qwen2-0.5b (random bf16 weights, seed 0) behind
            ``CompletionsAPI`` over ``InferenceEngine(device="cuda")``, on the
            paged and then the dense KV backend, counting kernel launches;
-           then the kernel path's logits against ``use_kernels=False``.
+           then the kernel path's logits against ``use_kernels=False``;
+4. mamba2  full-width mamba2-780m the same way on the dense backend (SSM
+           state has no paged form), with bucketed prefills of two chunks
+           through the SSD kernel and a chunked prompt beside decoding rows.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -23,6 +28,7 @@ no result, when there is no GPU or any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,12 +43,23 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the reference's bars (tests/test_kernels.py); the SSD kernel and its plain
+# version both compute in f32 from the same inputs, so one bar serves both
+# input types
 TOL = {("paged", torch.float32): 2e-5, ("paged", torch.bfloat16): 3e-2,
-       ("flash", torch.float32): 2e-5, ("flash", torch.bfloat16): 2e-2}
+       ("flash", torch.float32): 2e-5, ("flash", torch.bfloat16): 2e-2,
+       ("ssd", torch.float32): 2e-4, ("ssd", torch.bfloat16): 2e-4}
 LOGIT_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 SEED = 0
 DEV = "cuda"
-ARCH = "qwen2-0.5b"
+QWEN = "qwen2-0.5b"
+MAMBA = "mamba2-780m"
+MAMBA_BF16_DEPTH = 4          # layers of the bf16 kernel-vs-plain check
+KERNELS = (      # name, TPU kernel it replaces, serving phase it runs in
+    ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:67", "paged"),
+    ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:80", "dense"),
+    ("ssd_scan", "src/repro/kernels/ssd_scan/kernel.py:67", "mamba2"),
+)
 
 
 class CheckFailed(Exception):
@@ -140,6 +157,85 @@ def flash_work(B, Sq, Skv, H, KV, d, window, itemsize):
     return nbytes, 4.0 * B * H * d * float(vis.sum())
 
 
+def ssd_inputs(b, S, H, P, N, G, dtype, gen, tail=0):
+    """At the reference test's scales; dt = 0 and x = 0 on row 0's last
+    ``tail`` positions (the model's true_len masking)."""
+    x = torch.randn((b, S, H, P), generator=gen, device=DEV)
+    B = torch.randn((b, S, G, N), generator=gen, device=DEV) * 0.5
+    C = torch.randn((b, S, G, N), generator=gen, device=DEV) * 0.5
+    dt = torch.rand((b, S, H), generator=gen, device=DEV) * 0.19 + 0.01
+    da = -dt * (torch.rand((b, S, H), generator=gen, device=DEV) * 1.5 + 0.5)
+    if tail:
+        for t in (x, dt, da):
+            t[0, S - tail:] = 0.0
+    return x.to(dtype), B.to(dtype), C.to(dtype), dt, da
+
+
+def ssd_recurrence(x, B, C, dt, da):
+    """The literal per-token recurrence, f64."""
+    x, B, C, dt, da = (t.double() for t in (x, B, C, dt, da))
+    b, S, H, P = x.shape
+    rep = H // B.shape[2]
+    Bh, Ch = B.repeat_interleave(rep, 2), C.repeat_interleave(rep, 2)
+    h = torch.zeros((b, H, P, B.shape[-1]), dtype=torch.float64, device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * da[:, t].exp()[..., None, None] + torch.einsum(
+            "bhn,bhp->bhpn", Bh[:, t], x[:, t] * dt[:, t, :, None])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], h))
+    return torch.stack(ys, 1), h
+
+
+def ssd_work(b, S, H, P, N, G, Q, itemsize):
+    """Bytes (x, B, C unexpanded, dt, da read; y, h_last written, f32) and
+    the reference's chunked products at chunk Q: C B^T, M (x dt), C h and
+    the state update, for every head."""
+    nbytes = (b * S * H * P * itemsize + 2 * b * S * G * N * itemsize
+              + 2 * b * S * H * 4 + b * S * H * P * 4 + b * H * P * N * 4)
+    flops = 2.0 * b * (S // Q) * H * (Q * Q * N + Q * Q * P + 2 * Q * P * N)
+    return nbytes, flops
+
+
+def check_ssd(worst):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    H, P, N, G = 48, 64, 128, 1
+    cases = [(2, 256, 256, 0), (4, 512, 256, 0), (1, 1024, 256, 0),
+             (2, 256, 64, 0), (1, 512, 256, 137)]
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[("ssd", dtype)]
+        for b, S, Q, tail in cases:
+            args = ssd_inputs(b, S, H, P, N, G, dtype, gen, tail)
+            y, h = ssd_ops.ssd_scan(*args, chunk=Q)
+            torch.cuda.synchronize()
+            yr, hr = ssd_scan_ref(*args, chunk=Q)
+            (ey, oky), (eh, okh) = max_err(y, yr, tol), max_err(h, hr, tol)
+            worst["ssd_scan"] = max(worst["ssd_scan"], ey, eh)
+            log(f"[kernels] ssd_scan {str(dtype)[6:]} b={b} S={S} H={H} P={P} "
+                f"N={N} G={G} chunk={Q} dt0_tail={tail}: max_abs_err y={ey:.3e} "
+                f"h_last={eh:.3e} (max |y| {float(yr.abs().max()):.3e})")
+            check(oky and okh, f"ssd_scan {dtype} b={b} S={S} chunk={Q} "
+                               f"tail={tail} disagrees with its plain version")
+    args = ssd_inputs(1, 64, 2, 8, 4, 1, torch.float32, gen)
+    y, h = ssd_ops.ssd_scan(*args, chunk=16)
+    ys, hs = ssd_recurrence(*args)
+    (ey, oky), (eh, okh) = max_err(y, ys, 1e-3), max_err(h, hs, 1e-3)
+    log(f"[kernels] ssd_scan vs per-token recurrence f32 b=1 S=64 H=2 P=8 N=4: "
+        f"max_abs_err y={ey:.3e} h_last={eh:.3e}")
+    check(oky and okh, "ssd_scan disagrees with the per-token recurrence")
+
+    # one bucket-512 prefill group of mamba2 (4 rows), bf16 inputs
+    b, S, Q = 4, 512, 256
+    args = ssd_inputs(b, S, H, P, N, G, torch.bfloat16, gen)
+    ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=Q))
+    plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=Q), iters=20)
+    b_ms, b_by = bound(*ssd_work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def phase_kernels():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -148,7 +244,7 @@ def phase_kernels():
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     H, KV, d = 14, 2, 64
-    worst = {"paged_attention": 0.0, "flash_attention": 0.0}
+    worst = {"paged_attention": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}
 
     # paged decode: B=8, bs=16, max_blk=64, ctx 0 / 1 / 17 / 300 / 1024,
     # -1 tails in every table
@@ -208,6 +304,7 @@ def phase_kernels():
     b_ms, b_by = bound(*flash_work(Bf, S, S, H, KV, d, 0, 2), dtype)
     rows["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=lib)
+    rows["ssd_scan"] = check_ssd(worst)
     for name, r in rows.items():
         r["max_abs_err"] = worst[name]
         log(f"[kernels] {name} timing bf16: " + json.dumps(r))
@@ -231,24 +328,52 @@ def serve_traffic(vocab: int):
     return wave1, wave2
 
 
-def serve(cfg, params, backend: str):
+def mamba_traffic(vocab: int):
+    """10 requests, prompts of 12..700 tokens: four of 257..512 (bucket 512,
+    two scan chunks), one of 700 (chunked while other rows decode), and two
+    that wait for rows that finished requests free; 32 new tokens each, one
+    sampled with temperature 0.7 / top-k 40."""
+    rng = np.random.default_rng(SEED + 2)
+    lens = [12, 300, 700, 45, 480, 128, 64, 400, 20, 260]
+    return [[[int(x) for x in rng.integers(0, vocab, n)] for n in lens]]
+
+
+def kernel_ops():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"paged_attention": paged_ops, "flash_attention": flash_ops,
+            "ssd_scan": ssd_ops}
+
+
+def bucket_groups(eng) -> list[int]:
+    """Bucket of every batched prefill the engine ran, read from its
+    tracer: admissions in one step (same time stamp) to one bucket."""
+    seen = set()
+    for tr in eng.tracer.traces():
+        for sp in tr.spans:
+            kind = sp.attrs.get("kind", "")
+            if sp.name == "admission" and kind.startswith("bucket"):
+                seen.add((sp.t0, int(kind[len("bucket"):])))
+    return sorted(b for _, b in seen)
+
+
+def serve(cfg, params, backend: str, buckets, waves):
     from repro_torch.serving import (CompletionRequest, CompletionsAPI,
                                      InferenceEngine)
 
     eng = InferenceEngine(cfg, params=params, capacity=8, max_len=1024,
-                          buckets=(32, 64, 128), block_size=16,
+                          buckets=buckets, block_size=16,
                           kv_backend=backend, seed=SEED, device=DEV)
     api = CompletionsAPI(eng, model=cfg.name)
-    wave1, wave2 = serve_traffic(cfg.vocab_size)
     results = []
+    ops = kernel_ops()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    paged_ops.launches = 0
-    flash_ops.launches = 0
+    for m in ops.values():
+        m.launches = 0
     t0 = time.perf_counter()
-    for w, wave in enumerate((wave1, wave2)):
+    for w, wave in enumerate(waves):
         streams = []
         for i, prompt in enumerate(wave):
             sampled = w == 0 and i == 3
@@ -269,8 +394,7 @@ def serve(cfg, params, backend: str):
         results += streams
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"paged_attention": paged_ops.launches,
-              "flash_attention": flash_ops.launches}
+    counts = {name: m.launches for name, m in ops.items()}
     hist = eng.history
     decode_steps = sum(1 for st in hist if st.tokens_out)
     tokens = sum(len(r[2]) for r in results)
@@ -283,14 +407,23 @@ def serve(cfg, params, backend: str):
         prefill_s=round(sum(st.prefill_s for st in hist), 3),
         decode_s=round(sum(st.decode_s for st in hist), 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-        launches=counts)
-    log(f"[serve] {json.dumps(stats)}")
+        launches=counts, bucket_groups=bucket_groups(eng),
+        chunk_steps=sum(1 for st in hist if st.chunk_rows),
+        chunk_steps_with_decode=sum(1 for st in hist
+                                    if st.chunk_rows and st.tokens_out))
+    log(f"[serve] {cfg.name} {json.dumps(stats)}")
     for n, (plen, _, toks, fin) in enumerate(results):
         check(len(toks) == 32 and fin == ["length"],
               f"{backend}: request {n} (prompt {plen}) got {len(toks)} "
               f"tokens, finish {fin}")
         check(all(0 <= t < cfg.vocab_size for t in toks),
               f"{backend}: request {n} produced an out-of-vocab token")
+    return stats
+
+
+def check_qwen_serve(cfg, stats, backend: str):
+    counts = stats["launches"]
+    decode_steps = stats["decode_steps"]
     if backend == "paged":
         check(counts["paged_attention"] >= cfg.num_layers * decode_steps,
               f"paged: {counts['paged_attention']} paged-decode launches for "
@@ -298,7 +431,20 @@ def serve(cfg, params, backend: str):
         check(stats["prefix_hit_tokens"] > 0, "paged: no prefix-cache hits")
     else:
         check(counts["flash_attention"] > 0, "dense: flash attention never ran")
-    return stats
+    check(counts["ssd_scan"] == 0, f"{backend}: the SSD scan ran on qwen2")
+
+
+def check_mamba_serve(cfg, stats):
+    counts, groups = stats["launches"], stats["bucket_groups"]
+    check(stats["requests"] == 10, f"mamba2: {stats['requests']} requests served")
+    check(counts["ssd_scan"] >= cfg.num_layers * len(groups),
+          f"mamba2: {counts['ssd_scan']} SSD-scan launches for {len(groups)} "
+          f"bucketed prefill groups x {cfg.num_layers} layers")
+    check(512 in groups, f"mamba2: no prefill group at bucket 512 ({groups})")
+    check(stats["chunk_steps_with_decode"] > 0,
+          "mamba2: the chunked prompt never advanced beside decoding rows")
+    check(counts["paged_attention"] == 0 and counts["flash_attention"] == 0,
+          f"mamba2: attention kernels ran on an attention-free model ({counts})")
 
 
 def compare_paths(cfg, params, dtype):
@@ -382,16 +528,90 @@ def compare_paths(cfg, params, dtype):
           f"kernel-path logits off by rel {worst:.3e} in {dtype}")
 
 
-def profile_decode(cfg, params, steps: int = 5):
-    """Where a decode step's time goes: a paged engine with 8 rows decoding
-    at ~300 tokens of context; wall time per step unprofiled, then device
+def compare_paths_ssd(cfg, params, dtype, *, checked: bool = True):
+    """mamba2: kernel path vs use_kernels=False on one prefill at S = 512
+    (two scan chunks; rows of 512, 400, 300 and 12 valid tokens) + 4 dense
+    decode steps, same weights: max |diff| / max |logits| per call, held to
+    the bar when ``checked``.
+
+    In bf16 it also reads a deliberately faulty kernel path against the
+    plain one (a report, not a check): the scan with its inter-chunk carry
+    dropped (the state reset at each chunk)."""
+    import repro_torch.models.mamba as mamba_mod
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import LM
+
+    if dtype == torch.float32:
+        params = P.tree_map(lambda t: t.float(), params)
+    kernel = LM(cfg, with_overrides(BASELINE, use_kernels=True))
+    models = {"kernel": kernel,
+              "plain": LM(cfg, with_overrides(BASELINE, use_kernels=False))}
+    real_scan = mamba_mod.ssd_scan
+
+    def carry_dropped(x, B, C, dt, da, *, chunk):
+        b, S = x.shape[:2]
+        n = S // chunk
+
+        def split(t):
+            return t.reshape(b * n, chunk, *t.shape[2:])
+        y, h = real_scan(*(split(t) for t in (x, B, C, dt, da)), chunk=chunk)
+        return y.reshape(b, S, *y.shape[2:]), h.view(b, n, *h.shape[1:])[:, -1]
+
+    faults = {"carry_dropped": carry_dropped} if dtype == torch.bfloat16 else {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    B, S = 4, 512
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    true_len = torch.tensor([512, 400, 300, 12], device=DEV)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
+
+    logits, caches = {}, {}
+    for n in [*models, *faults]:
+        if n in faults:
+            mamba_mod.ssd_scan = faults[n]
+        try:
+            logits[n], caches[n] = models.get(n, kernel).prefill(
+                params, {"tokens": toks}, S, true_len=true_len)
+        finally:
+            mamba_mod.ssd_scan = real_scan
+    rels = [rel(logits["kernel"], logits["plain"])]
+    fault_rels = {n: [rel(logits[n], logits["plain"])] for n in faults}
+    pos = true_len.clone()
+    nxt = logits["kernel"].argmax(-1)
+    for _ in range(4):
+        out = {n: models.get(n, kernel).decode_step(params, nxt[:, None], pos,
+                                                     caches[n])[0]
+               for n in caches}
+        rels.append(rel(out["kernel"], out["plain"]))
+        for n in faults:
+            fault_rels[n].append(rel(out[n], out["plain"]))
+        check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
+        nxt = out["kernel"].argmax(-1)
+        pos = pos + 1
+    worst = max(rels)
+    what = f"{cfg.num_layers} layers, {str(dtype)[6:]}"
+    bar = f"bar {LOGIT_REL_TOL[dtype]}" if checked else "reported, not held to a bar"
+    log(f"[mamba2] kernel vs plain logits, {what}: rel per call "
+        f"{[f'{r:.2e}' for r in rels]} ({bar})")
+    for n, r in fault_rels.items():
+        log(f"[mamba2] faulty kernel path ({n}) vs plain logits, {what}: "
+            f"rel per call {[f'{x:.2e}' for x in r]}")
+    check(not checked or worst <= LOGIT_REL_TOL[dtype],
+          f"mamba2 kernel-path logits off by rel {worst:.3e}, {what}")
+
+
+def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
+    """Where a decode step's time goes: an engine with 8 rows decoding at
+    ~300 tokens of context; wall time per step unprofiled, then device
     time per step by op under torch.profiler (a report, not a check)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import InferenceEngine, Request, SamplingParams
     eng = InferenceEngine(cfg, params=params, capacity=8, max_len=1024,
-                          buckets=(32, 64, 128), block_size=16,
-                          kv_backend="paged", seed=SEED, device=DEV)
+                          buckets=buckets, block_size=16,
+                          kv_backend=backend, seed=SEED, device=DEV)
     rng = np.random.default_rng(SEED + 1)
     for i in range(8):
         eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(0, cfg.vocab_size, 300)],
@@ -416,27 +636,54 @@ def profile_decode(cfg, params, steps: int = 5):
     dev_ms = sum(dev_us(e) for e in events) / steps / 1e3
     top = [(e.key, round(dev_us(e) / steps / 1e3, 4), e.count // steps)
            for e in events[:10] if dev_us(e) > 0]
-    report = {"decode_step_wall_ms": round(wall_ms, 3),
+    report = {"model": cfg.name, "backend": backend,
+              "decode_step_wall_ms": round(wall_ms, 3),
               "decode_step_device_ms": round(dev_ms, 3) if dev_ms else "not measured",
               "device_busy_share": round(dev_ms / wall_ms, 3) if dev_ms else "not measured",
               "top_ops_ms_per_step_and_calls": top}
     log(f"[profile] {json.dumps(report)}")
 
 
-def phase_serve():
+def load_model(arch: str):
     from repro_torch.configs import get_config
-    from repro_torch.models.lm import make_model
     from repro_torch.models import params as P
+    from repro_torch.models.lm import make_model
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     specs = make_model(cfg).param_specs()
     log(f"[serve] {cfg.name}: {P.count_params(specs) / 1e6:.1f}M params, "
         f"{P.count_bytes(specs) / 1e9:.3f} GB")
-    params = P.init(torch.Generator(device=DEV).manual_seed(SEED), specs, DEV)
-    stats = {b: serve(cfg, params, b) for b in ("paged", "dense")}
-    profile_decode(cfg, params)
+    return cfg, P.init(torch.Generator(device=DEV).manual_seed(SEED), specs, DEV)
+
+
+def phase_qwen():
+    cfg, params = load_model(QWEN)
+    buckets = (32, 64, 128)
+    stats = {}
+    for b in ("paged", "dense"):
+        stats[b] = serve(cfg, params, b, buckets, serve_traffic(cfg.vocab_size))
+        check_qwen_serve(cfg, stats[b], b)
+    profile_decode(cfg, params, "paged", buckets)
     compare_paths(cfg, params, torch.bfloat16)
     compare_paths(cfg, params, torch.float32)
+    return stats
+
+
+def phase_mamba():
+    cfg, params = load_model(MAMBA)
+    buckets = (64, 256, 512)
+    stats = serve(cfg, params, "dense", buckets, mamba_traffic(cfg.vocab_size))
+    check_mamba_serve(cfg, stats)
+    profile_decode(cfg, params, "dense", buckets)
+    # bf16: the plain path rounds M, x*dt, C, h and B*wt to bf16 where the
+    # kernel keeps f32, and a deep random SSM stack amplifies that rounding
+    # (rel ~1e-2 at 4 layers, ~2.5e-2 at 12 on a CPU run): the bar is held
+    # at 4 layers of full width, the full depth is read beside it
+    d = min(MAMBA_BF16_DEPTH, cfg.num_layers)
+    compare_paths_ssd(dataclasses.replace(cfg, num_layers=d),
+                      dict(params, layers=params["layers"][:d]), torch.bfloat16)
+    compare_paths_ssd(cfg, params, torch.bfloat16, checked=False)
+    compare_paths_ssd(cfg, params, torch.float32)
     return stats
 
 
@@ -451,19 +698,16 @@ def main() -> int:
     try:
         phase_build()
         rows = phase_kernels()
-        stats = phase_serve()
+        stats = phase_qwen()
+        stats["mamba2"] = phase_mamba()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = []
-    for name, replaces in (
-            ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:67"),
-            ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:80")):
-        backend = "paged" if name == "paged_attention" else "dense"
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                        "replaces": replaces,
-                        "launches": stats[backend]["launches"][name], **rows[name]})
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces,
+                "launches": stats[phase]["launches"][name], **rows[name]}
+               for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -9,4 +9,6 @@ flash_attention/   causal GQA prefill attention (replaces the Pallas
                    flash_attention kernel)
 paged_attention/   decode attention over block-table paged KV (replaces
                    the Pallas paged_attention kernel)
+ssd_scan/          Mamba-2 SSD chunked scan (replaces the Pallas ssd_scan
+                   kernel)
 """

@@ -30,6 +30,7 @@ SIGNATURES = {
                         [_vp] * 8 + [_i] * 8 + [_f, _i, _i, _vp]),
     "flash_attention": ("flash_attention_launch",
                         [_vp] * 4 + [_i] * 6 + [_ll] * 9 + [_f, _i, _i, _i, _vp]),
+    "ssd_scan": ("ssd_scan_launch", [_vp] * 7 + [_i] * 7 + [_vp]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -1,0 +1,56 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel on GPU tensors, the plain
+version on CPU tensors.
+
+B and C are taken unexpanded, (b, S, G, N), so the caller never copies
+them per head.  ``launches`` counts kernel launches.  A CUDA tensor never
+reaches the plain version: it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+launches = 0
+MAX_STATE = 128          # the kernel's register tiles cover N <= 128
+
+
+def ssd_scan(x, B, C, dt, da, *, chunk: int):
+    """x (b,S,H,P) and B,C (b,S,G,N) float32 or bfloat16, H % G == 0;
+    dt,da (b,S,H) float32; S a multiple of ``chunk``.
+    Returns (y (b,S,H,P) f32, h_last (b,H,P,N) f32)."""
+    global launches
+    tensors = (x, B, C, dt, da)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ssd_scan_ref(x, B, C, dt, da, chunk=chunk)
+    if not all(t.device == x.device and t.device.type == "cuda" for t in tensors):
+        raise ValueError("ssd_scan: all inputs must be on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    b, S, H, P = x.shape
+    G, N = B.shape[-2:]
+    if B.shape != (b, S, G, N) or C.shape != B.shape or H % G \
+            or dt.shape != (b, S, H) or da.shape != dt.shape:
+        raise ValueError(f"shapes x {tuple(x.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}, dt {tuple(dt.shape)}, "
+                         f"da {tuple(da.shape)}")
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
+    if N > MAX_STATE:
+        raise ValueError(f"state size {N} > {MAX_STATE} is not supported")
+    if not (x.dtype == B.dtype == C.dtype):
+        raise TypeError(f"dtypes differ: {x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or da.dtype != torch.float32:
+        raise TypeError("dt and da must be float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_scan takes contiguous tensors")
+    y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    fn = build.launcher("ssd_scan")
+    rc = fn(x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
+            da.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            b, S, H, P, G, N, build.dtype_code(x),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, "ssd_scan")
+    launches += 1
+    return y, h_last

@@ -1,8 +1,10 @@
-"""Decoder-only LM of the port: dense global-attention decoders (qwen2).
+"""Decoder-only LM of the port: dense global-attention decoders (qwen2)
+and attention-free SSM decoders (mamba2).
 
 The reference runs a ``lax.scan`` over stacked layer groups; here the trunk
 is a plain loop over ``params["layers"]``, one dict per layer.  Caches are
-lists with one ``{"k", "v"}`` dict per layer, updated in place.
+lists with one dict per layer, updated in place: ``{"k", "v"}`` on
+attention layers, ``{"h", "conv_x", "conv_B", "conv_C"}`` on SSM layers.
 
 Modes:
   prefill       full sequence; emits fresh per-layer caches
@@ -20,6 +22,7 @@ from repro_torch.configs.perf import BASELINE, PerfConfig
 from repro_torch.kernels.flash_attention.ops import attention as flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import params as P
 
 
@@ -27,8 +30,8 @@ def _unsupported(cfg: ModelConfig) -> str | None:
     """Name of the first model family this port does not cover yet."""
     if cfg.num_experts:
         return "MoE"
-    if cfg.family in ("ssm", "hybrid") or cfg.attn_every or cfg.ssm_state:
-        return "SSM"
+    if cfg.family == "hybrid" or cfg.attn_every:
+        return "hybrid attention/SSM"
     if cfg.local_ratio or cfg.local_window or cfg.sliding_window:
         return "ring/local attention"
     if cfg.num_vision_tokens or cfg.family == "vlm":
@@ -42,8 +45,9 @@ def _unsupported(cfg: ModelConfig) -> str | None:
     return None
 
 
-def block_specs(cfg: ModelConfig) -> dict:
-    return {"ln1": L.rmsnorm_specs(cfg.d_model), "mixer": L.attention_specs(cfg),
+def block_specs(cfg: ModelConfig, kind: str) -> dict:
+    mixer = M.ssd_specs(cfg) if kind == "ssm" else L.attention_specs(cfg)
+    return {"ln1": L.rmsnorm_specs(cfg.d_model), "mixer": mixer,
             "ln2": L.rmsnorm_specs(cfg.d_model), "mlp": L.mlp_specs(cfg)}
 
 
@@ -59,25 +63,32 @@ class LM:
                 f"{cfg.name}: {family} is not ported to PyTorch yet")
         self.cfg = cfg
         self.perf = perf
+        self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+        self.has_attn = "attn" in self.kinds
 
     # ------------------------------------------------------------- specs
     def param_specs(self) -> dict:
         cfg = self.cfg
         return {"embed": L.embed_specs(cfg),
                 "final_norm": L.rmsnorm_specs(cfg.d_model),
-                "layers": [block_specs(cfg) for _ in range(cfg.num_layers)]}
+                "layers": [block_specs(cfg, k) for k in self.kinds]}
 
     def cache_specs(self, batch: int, max_len: int) -> list:
-        return [L.kv_cache_specs(self.cfg, batch, max_len)
-                for _ in range(self.cfg.num_layers)]
+        """Per-layer caches; every entry has its batch axis first."""
+        return [M.ssm_cache_specs(self.cfg, batch) if k == "ssm"
+                else L.kv_cache_specs(self.cfg, batch, max_len)
+                for k in self.kinds]
 
     def supports_paged(self) -> bool:
         """Paged KV serving covers decoders whose every layer is global
-        attention — every config this port accepts."""
-        return True
+        attention.  SSM state is per row (nothing to page): the engine
+        keeps the dense backend for those."""
+        return set(self.kinds) == {"attn"} and self.cfg.window_for("attn") == 0
 
     def paged_cache_specs(self, num_blocks: int, block_size: int) -> list:
         """Per-layer paged pools, indexed through one shared block table."""
+        if not self.supports_paged():
+            raise ValueError(f"{self.cfg.name}: not paged-servable")
         cfg = self.cfg
         shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
         axes = ("kv_blocks", "kv_slot", "kv_heads", "qkv")
@@ -149,6 +160,17 @@ class LM:
             new_cache = L.cache_write_prefill(empty, k, v)
         return L.attn_out(p, ctx), new_cache
 
+    def _ssm(self, p, h, *, mode, cache, true_len, live):
+        cfg = self.cfg
+        if mode == "decode":
+            return M.ssd_apply_decode(p, h, cache, cfg, live=live), cache
+        if mode == "chunk":
+            return M.ssd_apply_chunk(p, h, cache, cfg, true_len=true_len), cache
+        if mode != "prefill":
+            raise ValueError(f"{cfg.name}: SSM layers have no {mode} mode")
+        return M.ssd_apply_full(p, h, cfg, want_state=True, true_len=true_len,
+                                use_kernels=self.perf.use_kernels)
+
     @staticmethod
     def _write_slots(mode, C, caches, pos, true_len, block_table, live):
         """Where this pass's cache writes land — the same in every layer, so
@@ -167,20 +189,28 @@ class LM:
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None):
         cfg = self.cfg
-        slots = self._write_slots(mode, x.shape[1], caches, pos, true_len,
-                                  block_table, live)
-        angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        slots = angles = None
+        if self.has_attn:
+            slots = self._write_slots(mode, x.shape[1], caches, pos, true_len,
+                                      block_table, live)
+            angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         new_caches = []
-        for i, p in enumerate(params["layers"]):
+        for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            mix, nc = self._attend(
-                p["mixer"], h, mode=mode, positions=positions,
-                cache=None if caches is None else caches[i], pos=pos,
-                max_len=max_len, true_len=true_len, block_table=block_table,
-                live=live, slots=slots, angles=angles)
+            cache = None if caches is None else caches[i]
+            if kind == "ssm":
+                mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache,
+                                    true_len=true_len, live=live)
+            else:
+                mix, nc = self._attend(
+                    p["mixer"], h, mode=mode, positions=positions, cache=cache,
+                    pos=pos, max_len=max_len, true_len=true_len,
+                    block_table=block_table, live=live, slots=slots,
+                    angles=angles)
             new_caches.append(nc)
             x = x + mix
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            if cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
+                x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
         return x, new_caches
 
     def _last_logits(self, params, x, idx):
@@ -193,14 +223,15 @@ class LM:
     # ------------------------------------------------------------- public
     def prefill(self, params, batch, max_len: int, true_len=None):
         """Full-sequence prefill.  Returns (last-token logits (B,V) f32, fresh
-        per-layer caches of length ``max_len``).  ``true_len`` (B,) counts the
-        valid tokens of right-padded rows; logits come from the last one."""
+        per-layer caches: KV of length ``max_len``, SSM state).  ``true_len``
+        (B,) counts the valid tokens of right-padded rows; logits come from
+        the last one, and SSM state stops there."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = L.embed_apply(params["embed"], tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)[None, :]
         x, caches = self._trunk(params, x, mode="prefill", positions=positions,
-                                max_len=max_len)
+                                max_len=max_len, true_len=true_len)
         if true_len is None:
             idx = torch.full((B,), S - 1, device=tokens.device)
         else:

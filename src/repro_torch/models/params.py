@@ -23,9 +23,10 @@ class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | const
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | const | uniform
     scale: float = 1.0
     fan_in: int | None = None   # contracted input size of a fan_in matrix
+    bounds: tuple[float, float] = (0.0, 1.0)   # range of a uniform draw
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -62,7 +63,8 @@ def init(generator: torch.Generator, specs, device):
     ``scale / sqrt(fan_in)``, where fan_in is the spec's own (the size of
     the dims a matmul contracts) or else the second-to-last dim (the last
     of a vector).  The reference always takes the second-to-last dim, which
-    for the (D, heads, head_dim) attention weights is the head count."""
+    for the (D, heads, head_dim) attention weights is the head count.
+    ``uniform`` draws from ``bounds``."""
 
     def _init(s: ParamSpec):
         if s.init == "zeros":
@@ -73,6 +75,10 @@ def init(generator: torch.Generator, specs, device):
             return torch.full(s.shape, s.scale, dtype=s.dtype, device=device)
         if s.init in ("embed", "normal"):
             return _draw(generator, s, s.scale, device)
+        if s.init == "uniform":
+            lo, hi = s.bounds
+            x = torch.rand(s.shape, generator=generator, device=generator.device)
+            return (x * (hi - lo) + lo).to(device=device, dtype=s.dtype)
         fan_in = s.fan_in or (s.shape[-2] if len(s.shape) >= 2 else s.shape[-1])
         return _draw(generator, s, s.scale / math.sqrt(max(fan_in, 1)), device)
 

@@ -13,11 +13,13 @@ Prefill is a pipeline:
   work stays bounded (``SchedulerConfig.prefill_token_budget``).  One chunk
   call covers the whole pool — idle rows ride along and are left untouched.
 
-Two KV backends: ``dense`` (one (max_len, KV, hd) row per request, the
-default) and ``paged`` (block pools with a prefix cache, copy-on-write of
-shared tails).  Caches are preallocated tensors updated in place; every
-cache write a row must not take (pad positions, rows that are not live,
-unmapped blocks) is masked.  Each ``step()`` emits typed per-request events
+Two KV backends: ``dense`` (one cache row per request, the default: a
+(max_len, KV, hd) KV row per attention layer, the recurrent state per SSM
+layer) and ``paged`` (block pools with a prefix cache, copy-on-write of
+shared tails; global-attention decoders only, other models run dense).
+Caches are preallocated tensors updated in place; every cache write a row
+must not take (pad positions, rows that are not live, unmapped blocks) is
+masked.  Each ``step()`` emits typed per-request events
 and a ``StepStats`` record, which the front end (``serving/api.py``) and
 the observability layer (``core/``) consume.
 """
@@ -127,8 +129,10 @@ class InferenceEngine:
         else:
             # the dense pool keeps its spec dtype (bf16) whatever
             # perf.kv_dtype says, as the reference does
-            self.caches = P.init(None, self.model.cache_specs(capacity, max_len),
-                                 self.device)
+            specs = self.model.cache_specs(capacity, max_len)
+            self.caches = P.init(None, specs, self.device)
+            # per-leaf batch axis: row copies and resets touch every leaf
+            self._batch_axes = P.tree_map(lambda sp: sp.axes.index("batch"), specs)
         self.tokens = np.zeros((capacity, 1), np.int64)
         self.pos = np.zeros((capacity,), np.int64)
 
@@ -169,11 +173,12 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _insert_rows(self, new_caches, rows: list[int]) -> None:
-        """Copy a batched prefill's caches into the pool rows."""
+        """Copy a batched prefill's caches into the pool rows, every leaf
+        along its batch axis."""
         idx = self._t(np.asarray(rows, np.int64))
-        for pool, new in zip(self.caches, new_caches):
-            for n in ("k", "v"):
-                pool[n][idx] = new[n].to(pool[n].dtype)
+        for pool, new, axes in zip(self.caches, new_caches, self._batch_axes):
+            for n, t in pool.items():
+                t.index_copy_(axes[n], idx, new[n].to(t.dtype))
 
     @torch.no_grad()
     def _copy_block(self, src: int, dst: int) -> None:
@@ -444,11 +449,12 @@ class InferenceEngine:
                 self.caches, self._t(self.block_tables))
         else:
             if fresh:
-                # a reused row must not leak its previous occupant's KV
+                # a reused row must not leak its previous occupant's KV or
+                # SSM state
                 idx = self._t(np.asarray(fresh, np.int64))
-                for pool in self.caches:
-                    pool["k"][idx] = 0
-                    pool["v"][idx] = 0
+                for pool, axes in zip(self.caches, self._batch_axes):
+                    for n, t in pool.items():
+                        t.index_fill_(axes[n], idx, 0)
             logits, _ = self.model.prefill_chunk(
                 self.params, self._t(toks), self._t(pos0), self._t(nval),
                 self.caches)
@@ -756,6 +762,7 @@ class InferenceEngine:
                     self.caches, self._t(self.block_tables), self._t(live))
             else:
                 # rows mid chunked prefill must not take the decode write
+                # (each layer's cache writer masks it, every entry)
                 live = None
                 if self._prefilling:
                     live = np.ones((self.capacity,), bool)

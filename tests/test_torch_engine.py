@@ -271,8 +271,9 @@ import torch
 import chip_smoke  # noqa: F401  (module level only; main() is not run)
 from repro_torch.configs import get_config
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
-for backend in ("dense", "paged"):
-    eng = InferenceEngine(get_config("qwen2-0.5b-smoke"), capacity=2, max_len=32,
+for arch, backend in (("qwen2-0.5b-smoke", "dense"), ("qwen2-0.5b-smoke", "paged"),
+                      ("mamba2-780m-smoke", "dense")):
+    eng = InferenceEngine(get_config(arch), capacity=2, max_len=32,
                           buckets=(8,), block_size=8, kv_backend=backend,
                           device="cpu")
     eng.submit(Request(rid=0, prompt=[1, 2, 3], sampling=SamplingParams(max_new_tokens=3)))

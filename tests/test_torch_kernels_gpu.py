@@ -12,8 +12,12 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-from torch_kernel_cases import (FLASH_CASES, PAGED_CASES, TOL_FLASH, TOL_PAGED,
-                                flash_inputs, paged_inputs)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from torch_kernel_cases import (FLASH_CASES, PAGED_CASES, SSD_CASES,
+                                SSD_FULL_WIDTH, TOL_FLASH, TOL_PAGED, TOL_SSD,
+                                flash_inputs, paged_inputs, ssd_inputs,
+                                ssd_recurrence)
 
 
 def _close(got: torch.Tensor, ref: torch.Tensor, tol: float):
@@ -61,6 +65,34 @@ def test_paged_kernel_matches_plain_on_gpu(B, H, KV, d, nb, bs, maxb, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,S,H,P,N,Q,G", SSD_CASES + [SSD_FULL_WIDTH])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain_on_gpu(b, S, H, P, N, Q, G, dtype):
+    """Both get the same (dtype-rounded) inputs; both compute in f32."""
+    _need_cuda()
+    dt_ = getattr(torch, dtype)
+    x, B, C, dt, da = (torch.from_numpy(a).cuda() for a in ssd_inputs(b, S, H, P, N, G))
+    x, B, C = x.to(dt_), B.to(dt_), C.to(dt_)
+    n0 = ssd_ops.launches
+    y, h = ssd_ops.ssd_scan(x, B, C, dt, da, chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == n0 + 1
+    yr, hr = ssd_scan_ref(x, B, C, dt, da, chunk=Q)
+    _close(y, yr, TOL_SSD)
+    _close(h, hr, TOL_SSD)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_matches_recurrence_on_gpu():
+    _need_cuda()
+    args = ssd_inputs(1, 64, 2, 8, 4, 1, seed=2)
+    y, h = ssd_ops.ssd_scan(*(torch.from_numpy(a).cuda() for a in args), chunk=16)
+    ys, hs = ssd_recurrence(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), ys, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(h.cpu().numpy(), hs, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     _need_cuda()
     q = torch.zeros((2, 4, 16), device="cuda", dtype=torch.float16)
@@ -75,3 +107,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros((1, 8, 2, 256), device="cuda")
     with pytest.raises(ValueError):
         flash_ops.attention(x, x, x)
+    xs = torch.zeros((1, 8, 2, 4), device="cuda")
+    bc = torch.zeros((1, 8, 1, 256), device="cuda")
+    dt = torch.zeros((1, 8, 2), device="cuda")
+    with pytest.raises(ValueError):         # state size over the kernel's 128
+        ssd_ops.ssd_scan(xs, bc, bc, dt, dt, chunk=8)
+    with pytest.raises(ValueError):         # S not a multiple of the chunk
+        ssd_ops.ssd_scan(xs, bc[..., :16], bc[..., :16], dt, dt, chunk=3)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd_scan(xs, bc[..., :16], bc[..., :16], dt.half(), dt, chunk=8)

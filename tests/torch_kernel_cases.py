@@ -22,8 +22,19 @@ PAGED_CASES = [
     (4, 2, 2, 64, 12, 32, 3),
     (4, 14, 2, 64, 32, 16, 6),         # qwen2: rep 7
 ]
+# SSD scan (b, S, H, P, N, chunk, G): the reference's sweep with B and C
+# per head (G = H), a grouped case, and mamba2's head shapes (G = 1)
+SSD_CASES = [
+    (2, 128, 4, 32, 16, 32, 4),
+    (1, 256, 8, 64, 32, 64, 8),
+    (2, 64, 2, 16, 128, 64, 2),
+    (1, 512, 2, 64, 64, 128, 2),
+    (2, 96, 4, 16, 16, 32, 1),         # grouped: 4 heads read one B/C
+]
+SSD_FULL_WIDTH = (2, 512, 48, 64, 128, 256, 1)
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_PAGED = {"float32": 2e-5, "bfloat16": 3e-2}
+TOL_SSD = 2e-4
 
 
 def flash_inputs(B, Sq, Skv, H, KV, d, seed=0):
@@ -54,3 +65,34 @@ def paged_inputs(B, H, KV, d, nb, bs, maxb, seed=0):
     kp = rng.normal(size=(nb, bs, KV, d)).astype(np.float32)
     vp = rng.normal(size=(nb, bs, KV, d)).astype(np.float32)
     return q, kp, vp, table, ctx.astype(np.int32)
+
+
+def ssd_inputs(b, S, H, P, N, G, seed=0, tail=0):
+    """x, B, C, dt, da at the reference test's scales; B and C (b,S,G,N).
+    ``tail`` > 0 zeroes dt and x on each row's last ``tail`` positions, as
+    the model's ``true_len`` masking does."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, S, H, P)).astype(np.float32)
+    B = (rng.normal(size=(b, S, G, N)) * 0.5).astype(np.float32)
+    C = (rng.normal(size=(b, S, G, N)) * 0.5).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(b, S, H)).astype(np.float32)
+    da = (-dt * rng.uniform(0.5, 2.0, size=(b, S, H))).astype(np.float32)
+    if tail:
+        x[:, S - tail:] = 0.0
+        dt[:, S - tail:] = 0.0
+        da[:, S - tail:] = 0.0
+    return x, B, C, dt, da
+
+
+def ssd_recurrence(x, B, C, dt, da):
+    """The literal per-token recurrence in numpy (f64), B and C (b,S,G,N)."""
+    b, S, H, P = x.shape
+    rep = H // B.shape[2]
+    Bh, Ch = np.repeat(B, rep, axis=2), np.repeat(C, rep, axis=2)
+    h = np.zeros((b, H, P, B.shape[-1]))
+    ys = np.zeros((b, S, H, P))
+    for t in range(S):
+        h = h * np.exp(da[:, t])[..., None, None] + np.einsum(
+            "bhn,bhp->bhpn", Bh[:, t], x[:, t] * dt[:, t, :, None])
+        ys[:, t] = np.einsum("bhn,bhpn->bhp", Ch[:, t], h)
+    return ys, h
