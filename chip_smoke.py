@@ -54,7 +54,8 @@ SEED = 0
 DEV = "cuda"
 QWEN = "qwen2-0.5b"
 MAMBA = "mamba2-780m"
-MAMBA_BF16_DEPTH = 4          # layers of the bf16 kernel-vs-plain check
+MAMBA_BF16_DEPTH = 4          # layers of the bf16 kernel-vs-plain bar
+MAMBA_BF16_ERR_RATIO = 1.5    # full depth: kernel vs plain, distance to f32
 KERNELS = (      # name, TPU kernel it replaces, serving phase it runs in
     ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:67", "paged"),
     ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:80", "dense"),
@@ -108,6 +109,11 @@ def max_err(out, ref, tol):
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= tol + tol * ref.float().abs()).all())
     return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def rel(a, b) -> float:
+    """max |a - b| / max |b| (logits)."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
 
 
 # --------------------------------------------------------------- phase 1
@@ -476,10 +482,6 @@ def compare_paths(cfg, params, dtype):
     true_len = torch.tensor([128, 100, 77, 12], device=DEV)
     rels = []
     fault_rels = {name: [] for name in faults}
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
-
     real_paged = lm_mod.paged_decode_attention
 
     def decode(name, *args):
@@ -528,22 +530,18 @@ def compare_paths(cfg, params, dtype):
           f"kernel-path logits off by rel {worst:.3e} in {dtype}")
 
 
-def compare_paths_ssd(cfg, params, dtype, *, checked: bool = True):
-    """mamba2: kernel path vs use_kernels=False on one prefill at S = 512
-    (two scan chunks; rows of 512, 400, 300 and 12 valid tokens) + 4 dense
-    decode steps, same weights: max |diff| / max |logits| per call, held to
-    the bar when ``checked``.
-
-    In bf16 it also reads a deliberately faulty kernel path against the
-    plain one (a report, not a check): the scan with its inter-chunk carry
-    dropped (the state reset at each chunk)."""
+def ssd_path_logits(cfg, params):
+    """mamba2 logits per call, in the dtype of ``params``: one prefill at
+    S = 512 (two scan chunks; rows of 512, 400, 300 and 12 valid tokens),
+    then 4 dense decode steps fed the same drawn tokens whatever the dtype,
+    so that calls compare across dtypes.  Three paths: the kernel path, the
+    plain path (``use_kernels=False``) and a deliberately faulty kernel path,
+    the scan with its inter-chunk carry dropped (the state reset at each
+    chunk).  Returns {path: [logits (4, V) f32 per call]}."""
     import repro_torch.models.mamba as mamba_mod
     from repro_torch.configs.perf import BASELINE, with_overrides
-    from repro_torch.models import params as P
     from repro_torch.models.lm import LM
 
-    if dtype == torch.float32:
-        params = P.tree_map(lambda t: t.float(), params)
     kernel = LM(cfg, with_overrides(BASELINE, use_kernels=True))
     models = {"kernel": kernel,
               "plain": LM(cfg, with_overrides(BASELINE, use_kernels=False))}
@@ -558,48 +556,71 @@ def compare_paths_ssd(cfg, params, dtype, *, checked: bool = True):
         y, h = real_scan(*(split(t) for t in (x, B, C, dt, da)), chunk=chunk)
         return y.reshape(b, S, *y.shape[2:]), h.view(b, n, *h.shape[1:])[:, -1]
 
-    faults = {"carry_dropped": carry_dropped} if dtype == torch.bfloat16 else {}
     gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
-    B, S = 4, 512
+    B, S, steps = 4, 512, 4
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen, device=DEV)
     true_len = torch.tensor([512, 400, 300, 12], device=DEV)
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
-
-    logits, caches = {}, {}
-    for n in [*models, *faults]:
-        if n in faults:
-            mamba_mod.ssd_scan = faults[n]
+    out = {}
+    for n in (*models, "carry_dropped"):
+        if n == "carry_dropped":
+            mamba_mod.ssd_scan = carry_dropped
         try:
-            logits[n], caches[n] = models.get(n, kernel).prefill(
+            logits, caches = models.get(n, kernel).prefill(
                 params, {"tokens": toks}, S, true_len=true_len)
+            out[n] = [logits.float()]
+            for i in range(steps):
+                out[n].append(models.get(n, kernel).decode_step(
+                    params, feed[i], true_len + i, caches)[0].float())
         finally:
             mamba_mod.ssd_scan = real_scan
-    rels = [rel(logits["kernel"], logits["plain"])]
-    fault_rels = {n: [rel(logits[n], logits["plain"])] for n in faults}
-    pos = true_len.clone()
-    nxt = logits["kernel"].argmax(-1)
-    for _ in range(4):
-        out = {n: models.get(n, kernel).decode_step(params, nxt[:, None], pos,
-                                                     caches[n])[0]
-               for n in caches}
-        rels.append(rel(out["kernel"], out["plain"]))
-        for n in faults:
-            fault_rels[n].append(rel(out[n], out["plain"]))
-        check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
-        nxt = out["kernel"].argmax(-1)
-        pos = pos + 1
-    worst = max(rels)
-    what = f"{cfg.num_layers} layers, {str(dtype)[6:]}"
-    bar = f"bar {LOGIT_REL_TOL[dtype]}" if checked else "reported, not held to a bar"
-    log(f"[mamba2] kernel vs plain logits, {what}: rel per call "
-        f"{[f'{r:.2e}' for r in rels]} ({bar})")
-    for n, r in fault_rels.items():
-        log(f"[mamba2] faulty kernel path ({n}) vs plain logits, {what}: "
-            f"rel per call {[f'{x:.2e}' for x in r]}")
-    check(not checked or worst <= LOGIT_REL_TOL[dtype],
-          f"mamba2 kernel-path logits off by rel {worst:.3e}, {what}")
+        check(all(bool(torch.isfinite(t).all()) for t in out[n]),
+              f"mamba2: non-finite logits on the {n} path")
+    return out
+
+
+def compare_paths_ssd(cfg, params):
+    """mamba2, kernel path against the plain path, same weights: max |diff|
+    / max |logits| per call of :func:`ssd_path_logits`.
+
+    f32 is held to its bar at full depth.  In bf16 the plain path rounds M,
+    x*dt, C, h and B*wt to bf16 where the kernel keeps f32, and a deep
+    random SSM stack amplifies that rounding, so the bf16 bar is held at
+    ``MAMBA_BF16_DEPTH`` layers of full width; at full depth each bf16 path
+    is read against the f32 plain path instead, and the kernel path must be
+    no more than ``MAMBA_BF16_ERR_RATIO`` times as far from it as the plain
+    bf16 path.  The carry-dropped fault is reported beside each reading."""
+    from repro_torch.models import params as P
+
+    def calls(r):
+        return [f"{x:.2e}" for x in r]
+
+    def read(a, b):
+        return [rel(x, y) for x, y in zip(a, b)]
+
+    d = min(MAMBA_BF16_DEPTH, cfg.num_layers)
+    short = ssd_path_logits(dataclasses.replace(cfg, num_layers=d),
+                            dict(params, layers=params["layers"][:d]))
+    full = ssd_path_logits(cfg, params)
+    f32 = ssd_path_logits(cfg, P.tree_map(lambda t: t.float(), params))
+    for what, o, dtype in ((f"{d} layers, bfloat16", short, torch.bfloat16),
+                           (f"{cfg.num_layers} layers, bfloat16", full, None),
+                           (f"{cfg.num_layers} layers, float32", f32, torch.float32)):
+        r = read(o["kernel"], o["plain"])
+        bar = f"bar {LOGIT_REL_TOL[dtype]}" if dtype else "read against f32 below"
+        log(f"[mamba2] kernel vs plain logits, {what}: rel per call {calls(r)} ({bar})")
+        log(f"[mamba2] faulty kernel path (carry_dropped) vs plain logits, "
+            f"{what}: rel per call {calls(read(o['carry_dropped'], o['plain']))}")
+        check(dtype is None or max(r) <= LOGIT_REL_TOL[dtype],
+              f"mamba2 kernel-path logits off by rel {max(r):.3e}, {what}")
+    err = {n: read(full[n], f32["plain"]) for n in full}
+    log(f"[mamba2] bf16 paths vs the f32 plain path, {cfg.num_layers} layers: "
+        f"rel per call kernel {calls(err['kernel'])}, plain {calls(err['plain'])}, "
+        f"carry_dropped {calls(err['carry_dropped'])} (bar: kernel <= "
+        f"{MAMBA_BF16_ERR_RATIO} x plain)")
+    check(max(err["kernel"]) <= MAMBA_BF16_ERR_RATIO * max(err["plain"]),
+          f"mamba2 bf16 kernel path is rel {max(err['kernel']):.3e} from the f32 "
+          f"plain path, the plain bf16 path {max(err['plain']):.3e}")
 
 
 def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
@@ -675,15 +696,7 @@ def phase_mamba():
     stats = serve(cfg, params, "dense", buckets, mamba_traffic(cfg.vocab_size))
     check_mamba_serve(cfg, stats)
     profile_decode(cfg, params, "dense", buckets)
-    # bf16: the plain path rounds M, x*dt, C, h and B*wt to bf16 where the
-    # kernel keeps f32, and a deep random SSM stack amplifies that rounding
-    # (rel ~1e-2 at 4 layers, ~2.5e-2 at 12 on a CPU run): the bar is held
-    # at 4 layers of full width, the full depth is read beside it
-    d = min(MAMBA_BF16_DEPTH, cfg.num_layers)
-    compare_paths_ssd(dataclasses.replace(cfg, num_layers=d),
-                      dict(params, layers=params["layers"][:d]), torch.bfloat16)
-    compare_paths_ssd(cfg, params, torch.bfloat16, checked=False)
-    compare_paths_ssd(cfg, params, torch.float32)
+    compare_paths_ssd(cfg, params)
     return stats
 
 

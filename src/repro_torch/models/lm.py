@@ -83,7 +83,7 @@ class LM:
         """Paged KV serving covers decoders whose every layer is global
         attention.  SSM state is per row (nothing to page): the engine
         keeps the dense backend for those."""
-        return set(self.kinds) == {"attn"} and self.cfg.window_for("attn") == 0
+        return set(self.kinds) == {"attn"}
 
     def paged_cache_specs(self, num_blocks: int, block_size: int) -> list:
         """Per-layer paged pools, indexed through one shared block table."""
