@@ -56,6 +56,8 @@ QWEN = "qwen2-0.5b"
 MAMBA = "mamba2-780m"
 MAMBA_BF16_DEPTH = 4          # layers of the bf16 kernel-vs-plain bar
 MAMBA_BF16_ERR_RATIO = 1.5    # full depth: kernel vs plain, distance to f32
+# flash timed also at a full batch of the engine's capacity at max_len
+FLASH_LONG = (8, 1024)        # B, Sq = Skv
 KERNELS = (      # name, TPU kernel it replaces, serving phase it runs in
     ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:67", "paged"),
     ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:80", "dense"),
@@ -242,6 +244,25 @@ def check_ssd(worst):
                 library_ms=None)
 
 
+def time_flash(B, S, H, KV, d, gen):
+    """Kernel, plain version, SDPA and bound at (B, S=Sq=Skv), causal, bf16."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    dtype = torch.bfloat16
+    q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = cuda_ms(lambda: flash_ops.attention(q, k, v, causal=True))
+    plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=20)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    b_ms, b_by = bound(*flash_work(B, S, S, H, KV, d, 0, 2), dtype)
+    return dict(shape=f"B={B} S={S} H={H} KV={KV} d={d}", ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+
 def phase_kernels():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -298,18 +319,10 @@ def phase_kernels():
     b_ms, b_by = bound(*paged_work(B, H, KV, d, max_blk, ctx, 2), dtype)
     rows["paged_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None)
-    S = 128
-    q = torch.randn((Bf, S, H, d), generator=gen, device=DEV).to(dtype)
-    k = torch.randn((Bf, S, KV, d), generator=gen, device=DEV).to(dtype)
-    v = torch.randn((Bf, S, KV, d), generator=gen, device=DEV).to(dtype)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms = cuda_ms(lambda: flash_ops.attention(q, k, v, causal=True))
-    plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=20)
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    b_ms, b_by = bound(*flash_work(Bf, S, S, H, KV, d, 0, 2), dtype)
-    rows["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=lib)
+    rows["flash_attention"] = time_flash(Bf, 128, H, KV, d, gen)
+    rows["flash_attention"].update(
+        {f"long_{key}": val for key, val in
+         time_flash(*FLASH_LONG, H, KV, d, gen).items()})
     rows["ssd_scan"] = check_ssd(worst)
     for name, r in rows.items():
         r["max_abs_err"] = worst[name]
