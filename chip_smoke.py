@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -128,8 +128,30 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in paths.values()]}")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    hgmma = sass_hgmma(paths["flash_attention"])
+    wgmma = {fn: n for fn, n in hgmma.items() if "flash_wgmma_kernel" in fn}
+    log(f"[build] HGMMA instructions per flash_attention kernel: {json.dumps(hgmma)}")
+    check(len(wgmma) == 3 and all(wgmma.values()),
+          f"the bf16 flash instances hold no HGMMA instruction: {wgmma}")
+    return sum(wgmma.values())
+
+
+def sass_hgmma(path) -> dict[str, int]:
+    """HGMMA (wgmma) instructions of each kernel in a built library's SASS."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 # --------------------------------------------------------------- phase 2
@@ -289,26 +311,31 @@ def phase_kernels():
         check(ok, f"paged_attention {dtype} disagrees with its plain version")
         check(bool((out[0] == 0).all()), "paged_attention: ctx=0 row is not 0")
 
-    # flash: B=4, Sq=Skv in {32, 128, 200}, Skv > Sq, window 64
+    # flash: B=4, Sq=Skv in {32, 128, 200}, Skv > Sq, window 64 at qwen2's
+    # heads, then the tests' cases (tests/torch_kernel_cases.py: the
+    # reference's sweep and the tiles' edges) and a strided q
+    from torch_kernel_cases import (FLASH_CASES, FLASH_STRIDED_Q, flash_inputs,
+                                    strided_view)
     Bf = 4
-    cases = [(32, 32, 0), (128, 128, 0), (200, 200, 0), (100, 260, 0),
-             (200, 200, 64)]
+    cases = [(Bf, Sq, Skv, H, KV, d, w, False) for Sq, Skv, w in
+             [(32, 32, 0), (128, 128, 0), (200, 200, 0), (100, 260, 0), (200, 200, 64)]]
+    cases += [(*c, False) for c in FLASH_CASES] + [(*FLASH_STRIDED_Q, True)]
     for dtype in (torch.bfloat16, torch.float32):
-        for Sq, Skv, window in cases:
-            q = torch.randn((Bf, Sq, H, d), generator=gen, device=DEV).to(dtype)
-            k = torch.randn((Bf, Skv, KV, d), generator=gen, device=DEV).to(dtype)
-            v = torch.randn((Bf, Skv, KV, d), generator=gen, device=DEV).to(dtype)
-            out = flash_ops.attention(q, k, v, causal=True, window=window)
+        for B_, Sq, Skv, H_, KV_, d_, window, strided in cases:
+            q, k, v = (torch.from_numpy(x).to(DEV, dtype)
+                       for x in flash_inputs(B_, Sq, Skv, H_, KV_, d_, seed=Sq + d_))
+            out = flash_ops.attention(strided_view(q) if strided else q, k, v,
+                                      causal=True, window=window)
             torch.cuda.synchronize()
             ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True,
                                 window=window).transpose(1, 2)
             err, ok = max_err(out, ref, TOL[("flash", dtype)])
             worst["flash_attention"] = max(worst["flash_attention"], err)
-            log(f"[kernels] flash_attention {str(dtype)[6:]} B={Bf} Sq={Sq} "
-                f"Skv={Skv} window={window}: max_abs_err={err:.3e}")
-            check(ok, f"flash_attention {dtype} Sq={Sq} Skv={Skv} "
-                      f"window={window} disagrees with its plain version")
+            what = (f"B={B_} Sq={Sq} Skv={Skv} H={H_} KV={KV_} d={d_} "
+                    f"window={window}{' strided q' if strided else ''}")
+            log(f"[kernels] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
+            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
 
     # timings at the serving path's shapes, bf16
     dtype = torch.bfloat16
@@ -722,8 +749,9 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     t0 = time.perf_counter()
     try:
-        phase_build()
+        hgmma = phase_build()
         rows = phase_kernels()
+        rows["flash_attention"]["hgmma"] = hgmma
         stats = phase_qwen()
         stats["mamba2"] = phase_mamba()
     except CheckFailed as e:

@@ -4,25 +4,54 @@
 // src/repro/kernels/flash_attention/kernel.py (body `_attn_kernel`, wrapper
 // `ops.attention`): FA2-style attention with an online softmax over key
 // tiles, GQA (query head h reads kv head h / rep), sliding windows, and
-// queries right-aligned against the keys when Skv > Sq.
+// queries right-aligned against the keys when Skv > Sq.  q is read as
+// (B, Sq, H, d) and k, v as (B, Skv, KV, d) in place through their strides;
+// rows past Sq and keys past Skv are masked here, nothing is padded.
 //
-// What bounds it on the H100: at the serving engine's prefill shapes
-// (a few rows of at most 128 tokens, d = 64) memory.  q, k, v and the
-// output are read or written once; the work is 4 * d flops per visible
-// (query, key) pair, about 2 * S flops per byte, well under the ~295 flops
-// per byte of the bf16 tensor cores at S <= 128.  The design therefore:
-//   * reads the model layout (B, S, heads, d) in place through its strides
-//     and masks the ragged Sq / Skv edge itself: no transpose, no padding
-//     copy (the TPU wrapper transposed q, k, v and padded them to tiles);
-//   * gives one thread block to each (b, h, 64-query tile); the block loads
-//     each 64-key tile of its kv head once into shared memory (f32) and
-//     every query row of the tile reuses it;
-//   * skips whole key tiles that the causal mask or the window hides;
-//   * keeps the running max, sum and accumulator of every query row in f32
-//     shared memory: one warp owns a query row at a time, a lane scores two
-//     keys and updates d / 32 output dims.
-// It runs on the CUDA cores in f32.  Tensor-core (wgmma) tiles are the step
-// that matters once prompts grow to thousands of tokens.
+// Two kernels, chosen by dtype alone:
+//
+// bf16: `flash_wgmma_kernel<D>`, D in {32, 64, 128} (a head dim d that is a
+// multiple of 16 runs in the smallest D >= d; TMA fills columns d..D with
+// zeros).  What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
+// serving engine's bucketed prefill (B = 4, S = 128, 14 heads over 2, d = 64)
+// bytes, 2.1 MB against 118 MFLOP, 0.6 us: far below the time of one launch,
+// so the call is bound by latency: getting a tile in and out of one SM.  At a
+// full batch of long prompts (B = 8, S = 1024) operations: 15 GFLOP, 15 us,
+// against 34 MB, 10 us.  The design:
+//   * one block per (64-query tile, query head, row); its one warpgroup (128
+//     threads) owns the 64 query rows, so small prompts still spread over
+//     the SMs;
+//   * Q and a ring of two K/V stages stay in bf16 in shared memory, filled by
+//     TMA (one 4-d tensor map per operand, built on the host from pointer,
+//     shape and strides; mbarrier completion) in the 128-byte (64-byte at
+//     D = 32) swizzle that the wgmma descriptors name.  Thread 0 issues the
+//     copy of key tile j + 1 before the math of tile j.  Out-of-range rows,
+//     keys and columns arrive as zeros;
+//   * S = Q K^T is D / 16 `wgmma.m64n64k16` steps, bf16 in, f32 out in
+//     registers; whole key tiles that the causal mask or the window hides are
+//     skipped, and only tiles that cross the diagonal, the window edge or
+//     Skv are masked;
+//   * the online softmax stays in registers: a query row's 64 scores lie on
+//     the 4 lanes of a quad, so its max takes 2 shuffles; m and l are f32
+//     with the reference's clamps;
+//   * P is rounded to bf16 in registers and is wgmma's A operand as it lies
+//     (the accumulator fragment of S is the A fragment of P V); V is the B
+//     operand from shared memory, [key][d], with the transpose flag:
+//     `wgmma.m64n{D}k16`, f32 accumulators, O rescaled in registers;
+//   * l sums P after its rounding to bf16, the very weights that P V uses, so
+//     the output is a convex combination of V rows up to f32 rounding; each
+//     lane sums its own columns and the quad's sums meet once, at the end;
+//   * the epilogue writes O / max(l, 1e-30) as bf16 to shared memory and
+//     stores 16-byte rows to (B, Sq, H, d).
+//
+// f32: `flash_f32_kernel`, on the CUDA cores, which holds the reference's
+// 2e-5 bar (TF32 tensor cores keep about 1e-3).  It serves the f32 logits
+// check and the tests, not the bf16 serving path: one warp owns a query row
+// at a time, a lane scores two keys and updates d / 32 output dims, with
+// q, k, v and the accumulator in f32 shared memory.
+
+#include <cuda.h>      // CUtensorMap and its enums (the encoder is looked up at run time)
+#include <dlfcn.h>
 
 #include "common.cuh"
 
@@ -30,14 +59,22 @@ namespace repro {
 namespace {
 
 constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // keys per tile (two per lane)
-constexpr int kWarps = 4;
+constexpr int kBK = 64;       // keys per tile
 constexpr int kMaxD = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out,                   // (B, Sq, H, d) contiguous
+// ---------------------------------------------------------------- f32
+
+constexpr int kF32Warps = 4;
+
+size_t f32_smem(int d) {
+  return sizeof(float) * ((size_t)kBK * (d + 1) + (size_t)kBK * d +
+                          2 * (size_t)kBQ * d + 2 * kBQ + kF32Warps * kBK);
+}
+
+__global__ void __launch_bounds__(kF32Warps * 32) flash_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,  // (B, Sq, H, d)
     int Sq, int Skv, int H, int KV, int d,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
@@ -51,7 +88,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
   float* acc_s = q_s + kBQ * d;          // kBQ * d
   float* m_s = acc_s + kBQ * d;          // kBQ
   float* l_s = m_s + kBQ;                // kBQ
-  float* p_s = l_s + kBQ;                // kWarps * kBK
+  float* p_s = l_s + kBQ;                // kF32Warps * kBK
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -63,14 +100,14 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
   const int n_rows = min(kBQ, Sq - q_lo);
   const int off = Skv - Sq;              // absolute position of query row 0
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + g * ksh;
-  const T* vb = v + b * vsb + g * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + g * ksh;
+  const float* vb = v + b * vsb + g * vsh;
 
   for (int e = tid; e < kBQ * d; e += blockDim.x) {
     const int r = e / d;
     const int dd = e - r * d;
-    q_s[e] = r < n_rows ? to_f32(qb[(q_lo + r) * qss + dd]) * scale : 0.f;
+    q_s[e] = r < n_rows ? qb[(q_lo + r) * qss + dd] * scale : 0.f;
     acc_s[e] = 0.f;
   }
   for (int r = tid; r < kBQ; r += blockDim.x) {
@@ -92,12 +129,12 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
       const int dd = e - t * d;
       const int key = k0 + t;
       const bool ok = key < Skv;
-      k_s[t * dk + dd] = ok ? to_f32(kb[key * kss + dd]) : 0.f;
-      v_s[t * d + dd] = ok ? to_f32(vb[key * vss + dd]) : 0.f;
+      k_s[t * dk + dd] = ok ? kb[key * kss + dd] : 0.f;
+      v_s[t * d + dd] = ok ? vb[key * vss + dd] : 0.f;
     }
     __syncthreads();
 
-    for (int rr = warp; rr < n_rows; rr += kWarps) {
+    for (int rr = warp; rr < n_rows; rr += kF32Warps) {
       const int qa = q_lo + rr + off;
       const float* qr = q_s + rr * d;
       float s[kBK / 32];
@@ -145,30 +182,418 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(
   }
   __syncthreads();
 
-  T* ob = out + (((size_t)b * Sq + q_lo) * H + h) * d;
+  float* ob = out + (((size_t)b * Sq + q_lo) * H + h) * d;
   for (int e = tid; e < n_rows * d; e += blockDim.x) {
     const int r = e / d;
     const int dd = e - r * d;
-    store(ob + (size_t)r * H * d + dd, acc_s[e] / fmaxf(l_s[r], kDenomFloor));
+    ob[(size_t)r * H * d + dd] = acc_s[e] / fmaxf(l_s[r], kDenomFloor);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int KV, int d,
-                   const long long* st, float scale, int causal, int window,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)kBK * (d + 1) + (size_t)kBK * d + 2 * (size_t)kBQ * d + 2 * kBQ + kWarps * kBK);
-  auto kern = flash_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int B, int Sq, int Skv, int H, int KV, int d,
+                       const long long* st, float scale, int causal,
+                       int window, cudaStream_t stream) {
+  // once per process: the largest request, that of d = kMaxD
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)f32_smem(kMaxD));
+  if (attr != cudaSuccess) return attr;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, KV, d,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+  flash_f32_kernel<<<grid, kF32Warps * 32, f32_smem(d), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KV,
+      d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bf16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// spins until the barrier's phase of `parity` completes; a copy that never
+// lands (a bad tensor map) traps after about a second instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1ll << 31)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one TMA box of a 4-d map (d, heads, seq, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across it
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S (64 x 64, f32) += A (64 x 16, smem) B (16 x 64, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x N, f32) += P (64 x 16, bf16 registers) V (16 x N, smem, N-major)
+__device__ __forceinline__ void wgmma_rs_m64n32_tb(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b) {
+  if constexpr (D == 32) wgmma_rs_m64n32_tb(o, a, b);
+  else if constexpr (D == 64) wgmma_rs_m64n64_tb(o, a, b);
+  else wgmma_rs_m64n128_tb(o, a, b);
+}
+
+template <int D>
+struct Tiles {
+  static constexpr int kSwE = D < 64 ? D : 64;          // elements per swizzled row
+  static constexpr int kSwB = 2 * kSwE;                 // its bytes: 64 or 128
+  static constexpr int kChunks = D / kSwE;              // TMA boxes per tile
+  static constexpr int kChunkBytes = kBQ * kSwB;        // one box: 64 rows
+  static constexpr int kTile = kBQ * D * 2;             // Q, K or V tile, bf16
+  static constexpr uint64_t kLayout = kSwB == 128 ? 1 : 2;
+  // Q, then K and V of stages 0 and 1, then three mbarriers; 1 KB of slack
+  // to align the tiles to the swizzle's 1024-byte period
+  static constexpr size_t kSmem = 5 * (size_t)kTile + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, d) contiguous
+    int Sq, int Skv, int H, int KV, int d, float scale, int causal,
+    int window) {
+  using T = Tiles<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t bar_q = base + 5 * T::kTile;
+  auto k_s = [&](int s) { return base + T::kTile * (1 + 2 * s); };
+  auto v_s = [&](int s) { return base + T::kTile * (2 + 2 * s); };
+  auto bar_kv = [&](int s) { return bar_q + 8 * (1 + s); };
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / (H / KV);
+  const int q_lo = blockIdx.x * kBQ;
+  const int n_rows = min(kBQ, Sq - q_lo);
+  const int qa_lo = q_lo + Skv - Sq;     // absolute position of the tile's row 0
+  const int qa_hi = qa_lo + n_rows - 1;
+
+  // key tiles any row of this tile can see
+  const int k_end = causal ? min(Skv, qa_hi + 1) : Skv;
+  const int t_begin = (window ? max(0, qa_lo - window + 1) : 0) / kBK;
+  const int n_tiles = max(0, (k_end + kBK - 1) / kBK - t_begin);
+
+  auto load_kv = [&](int s, int t) {
+    mbar_expect_tx(bar_kv(s), 2 * T::kTile);
+#pragma unroll
+    for (int c = 0; c < T::kChunks; ++c) {
+      tma_load(k_s(s) + c * T::kChunkBytes, &tm_k, bar_kv(s), c * T::kSwE, g, t * kBK, b);
+      tma_load(v_s(s) + c * T::kChunkBytes, &tm_v, bar_kv(s), c * T::kSwE, g, t * kBK, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv(0), 1);
+    mbar_init(bar_kv(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, T::kTile);
+#pragma unroll
+    for (int c = 0; c < T::kChunks; ++c)
+      tma_load(q_s + c * T::kChunkBytes, &tm_q, bar_q, c * T::kSwE, h, q_lo, b);
+    if (n_tiles > 0) load_kv(0, t_begin);
+  }
+
+  // accumulator fragment: this thread holds rows r0 and r0 + 8 of the tile,
+  // columns 8 i + cq and 8 i + cq + 1 of every 8-column block i
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};                 // this lane's share of the row sums
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    if (tid == 0 && j + 1 < n_tiles) load_kv(s ^ 1, t_begin + j + 1);
+    mbar_wait(bar_kv(s), (j >> 1) & 1);
+    const int k0 = (t_begin + j) * kBK;
+
+    // S = Q K^T
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs<32>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t koff = (ks * 16 / T::kSwE) * T::kChunkBytes + (ks * 16 % T::kSwE) * 2;
+      wgmma_ss_m64n64(sc, smem_desc(q_s + koff, 16, 8 * T::kSwB, T::kLayout),
+                      smem_desc(k_s(s) + koff, 16, 8 * T::kSwB, T::kLayout), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<32>(sc);
+
+    // scale, mask where the tile crosses the diagonal, the window or Skv
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > qa_lo) ||
+                      (window && k0 <= qa_hi - window);
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int jr = (i >> 1) & 1;
+      float t = sc[i] * scale;
+      if (edge) {
+        const int key = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const int qa = qa_lo + r0 + 8 * jr;
+        bool ok = key < Skv;
+        if (causal) ok = ok && key <= qa;
+        if (window) ok = ok && key > qa - window;
+        t = ok ? t : kNeg;
+      }
+      sc[i] = t;
+      mx[jr] = fmaxf(mx[jr], t);
+    }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int jr = 0; jr < 2; ++jr) {
+      mx[jr] = fmaxf(mx[jr], __shfl_xor_sync(0xffffffffu, mx[jr], 1));
+      mx[jr] = fmaxf(mx[jr], __shfl_xor_sync(0xffffffffu, mx[jr], 2));
+      const float m_new = fmaxf(m[jr], mx[jr]);
+      m_safe[jr] = fmaxf(m_new, kMaxClamp);
+      alpha[jr] = exp2f((fmaxf(m[jr], kMaxClamp) - m_safe[jr]) * kLog2e);
+      m[jr] = m_new;
+      l[jr] *= alpha[jr];
+    }
+
+    // P in bf16, laid out as wgmma's A fragment: key step kk, register mm
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm) {
+        const int i = 8 * kk + 2 * mm;
+        const int jr = mm & 1;
+        const __nv_bfloat162 p = __floats2bfloat162_rn(
+            exp2f((sc[i] - m_safe[jr]) * kLog2e),
+            exp2f((sc[i + 1] - m_safe[jr]) * kLog2e));
+        l[jr] += __low2float(p) + __high2float(p);
+        pa[kk][mm] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V
+    fence_regs<D / 2>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<D>(o, pa[kk], smem_desc(v_s(s) + kk * 16 * T::kSwB,
+                                       T::kChunkBytes, 8 * T::kSwB, T::kLayout));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<D / 2>(o);
+    __syncthreads();                       // stage s is free for tile j + 2
+  }
+
+  // epilogue: O / max(l, floor) in bf16 through shared memory (the stage-0
+  // K and V tiles, no longer read), then 16-byte rows to global memory
+  float den[2];
+#pragma unroll
+  for (int jr = 0; jr < 2; ++jr) {
+    l[jr] += __shfl_xor_sync(0xffffffffu, l[jr], 1);
+    l[jr] += __shfl_xor_sync(0xffffffffu, l[jr], 2);
+    den[jr] = fmaxf(l[jr], kDenomFloor);
+  }
+  constexpr int kPitch = D + 8;            // elements; 16-byte rows, few bank conflicts
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw + (k_s(0) - raw));
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int jr = 0; jr < 2; ++jr)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * jr) * kPitch + 8 * i + cq) =
+          __floats2bfloat162_rn(o[4 * i + 2 * jr] / den[jr], o[4 * i + 2 * jr + 1] / den[jr]);
+  __syncthreads();
+  const int per_row = d / 8;               // 16-byte pieces of a row of d
+  __nv_bfloat16* ob = out + (((size_t)b * Sq + q_lo) * H + h) * d;
+  for (int e = tid; e < n_rows * per_row; e += blockDim.x) {
+    const int r = e / per_row;
+    const int c = e - r * per_row;
+    *reinterpret_cast<uint4*>(ob + (size_t)r * H * d + 8 * c) =
+        *reinterpret_cast<const uint4*>(stage + r * kPitch + 8 * c);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that the process has loaded: no
+// link against libcuda, whatever the toolkit's version
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// map of a (batch, seq, heads, d) bf16 tensor with element strides st =
+// (batch, seq, heads), d contiguous; boxes of 64 rows x `box_d` columns
+bool encode_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+                int heads, int d, const long long* st, int box_d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)seq,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                           (cuuint64_t)st[0] * 2};
+  cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)kBQ, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_d * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int Sq, int Skv, int H, int KV,
+                         int d, const long long* st, float scale, int causal,
+                         int window, cudaStream_t stream) {
+  using T = Tiles<D>;
+  alignas(64) CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, B, Sq, H, d, st, T::kSwE) ||
+      !encode_map(&tk, k, B, Skv, KV, d, st + 3, T::kSwE) ||
+      !encode_map(&tv, v, B, Skv, KV, d, st + 6, T::kSwE))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  flash_wgmma_kernel<D><<<grid, 128, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV, d, scale,
       causal, window);
   return cudaGetLastError();
 }
@@ -177,7 +602,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace repro
 
 // strides: q (b, s, h), k (b, s, h), v (b, s, h) in elements; the last dim
-// is contiguous.  Returns cudaGetLastError() after the launch (0 = launched).
+// is contiguous.  bf16 needs d % 16 == 0, 16-byte aligned bases and strides
+// that are multiples of 8 (TMA); f32 takes any d <= 128.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
     int Skv, int H, int KV, int d, long long qsb, long long qss, long long qsh,
@@ -189,9 +616,14 @@ extern "C" int flash_attention_launch(
   if (d > kMaxD || H % KV != 0) return (int)cudaErrorInvalidValue;
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Skv == 0)                             // no keys: every row is 0
+    return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * d * (dtype == kF32 ? 4 : 2), s);
   if (dtype == kF32)
-    return (int)launch<float>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
-  if (dtype == kBF16)
-    return (int)launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_f32(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+  if (dtype != kBF16 || d % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 32)
+    return (int)launch_wgmma<32>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+  if (d <= 64)
+    return (int)launch_wgmma<64>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+  return (int)launch_wgmma<128>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
 }

@@ -1,9 +1,12 @@
-"""Flash attention in the model layout: the CUDA kernel on GPU tensors, the
+"""Flash attention in the model layout: the CUDA kernels on GPU tensors, the
 plain version on CPU tensors.
 
-The kernel reads q (B,Sq,H,d) and k/v (B,Skv,KV,d) in place through their
-strides and masks the ragged edges itself, so nothing is transposed or
-padded on the GPU.  ``launches`` counts kernel launches.
+The kernels read q (B,Sq,H,d) and k/v (B,Skv,KV,d) in place through their
+strides and mask the ragged edges themselves, so nothing is transposed or
+padded on the GPU.  The dtype alone picks the kernel: bf16 runs the
+tensor-core (``wgmma``) kernel, whose operands arrive by TMA, so d must be a
+multiple of 16 and every base and stride 16-byte aligned; f32 runs the
+CUDA-core kernel.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -13,6 +16,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+
+
+def _strides(t) -> tuple[int, int, int]:
+    """Element strides of dims 0..2; a dim of size 1 is never stepped, so
+    it takes its contiguous stride (TMA wants multiples of 16 bytes)."""
+    _, S, n, d = t.shape
+    dense = (S * n * d, n * d, d)
+    return tuple(t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3))
+
+
+def _check_tma(name: str, t, st) -> None:
+    if t.data_ptr() % 16 or any(s % 8 for s in st):
+        raise ValueError(f"attention: bf16 {name} needs a 16-byte aligned base "
+                         f"and strides that are multiples of 8 elements, got "
+                         f"strides {tuple(t.stride())}")
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -34,19 +52,23 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"v {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    code = build.dtype_code(q)
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k, v must be contiguous")
+    st = [_strides(t) for t in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        if d % 16:
+            raise ValueError(f"bf16 head_dim {d} is not a multiple of 16")
+        for name, t, s in zip("qkv", (q, k, v), st):
+            _check_tma(name, t, s)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     fn = build.launcher("flash_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(causal), int(window), build.dtype_code(q),
+            B, Sq, Skv, H, KV, d, *st[0], *st[1], *st[2],
+            float(scale), int(causal), int(window), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     launches += 1

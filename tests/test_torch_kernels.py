@@ -23,9 +23,10 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from torch_kernel_cases import (FLASH_CASES, PAGED_CASES, SSD_CASES, TOL_FLASH,
-                                TOL_PAGED, TOL_SSD, flash_inputs, paged_inputs,
-                                ssd_inputs, ssd_recurrence)
+from torch_kernel_cases import (FLASH_CASES, FLASH_STRIDED_Q, PAGED_CASES,
+                                SSD_CASES, TOL_FLASH, TOL_PAGED, TOL_SSD,
+                                flash_inputs, paged_inputs, ssd_inputs,
+                                ssd_recurrence, strided_view)
 
 # jitted: one compile per shape instead of one per op
 jax_attention_ref = jax.jit(attention_ref, static_argnames=("causal", "window"))
@@ -55,6 +56,19 @@ def test_flash_plain_matches_reference(B, Sq, Skv, H, KV, d, window, dtype):
     got = flash_ops.attention(q[1], k[1], v[1], causal=True, window=window)
     assert got.shape == (B, Sq, H, d) and got.dtype == q[1].dtype
     assert flash_ops.launches == n0, "CPU tensors must not count a launch"
+    _close(got, ref, TOL_FLASH[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_strided_q_matches_reference(dtype):
+    B, Sq, Skv, H, KV, d, window = FLASH_STRIDED_Q
+    q, k, v = (_pair(x, dtype) for x in flash_inputs(B, Sq, Skv, H, KV, d))
+    ref = jax_attention_ref(q[0].transpose(0, 2, 1, 3), k[0].transpose(0, 2, 1, 3),
+                            v[0].transpose(0, 2, 1, 3), causal=True,
+                            window=window).transpose(0, 2, 1, 3)
+    qs = strided_view(q[1])
+    assert not qs.is_contiguous() and qs.stride(-1) == 1
+    got = flash_ops.attention(qs, k[1], v[1], causal=True, window=window)
     _close(got, ref, TOL_FLASH[dtype])
 
 

@@ -14,10 +14,10 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-from torch_kernel_cases import (FLASH_CASES, PAGED_CASES, SSD_CASES,
-                                SSD_FULL_WIDTH, TOL_FLASH, TOL_PAGED, TOL_SSD,
-                                flash_inputs, paged_inputs, ssd_inputs,
-                                ssd_recurrence)
+from torch_kernel_cases import (FLASH_CASES, FLASH_STRIDED_Q, PAGED_CASES,
+                                SSD_CASES, SSD_FULL_WIDTH, TOL_FLASH, TOL_PAGED,
+                                TOL_SSD, flash_inputs, paged_inputs, ssd_inputs,
+                                ssd_recurrence, strided_view)
 
 
 def _close(got: torch.Tensor, ref: torch.Tensor, tol: float):
@@ -42,6 +42,22 @@ def test_flash_kernel_matches_plain_on_gpu(B, Sq, Skv, H, KV, d, window, dtype):
     got = flash_ops.attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert flash_ops.launches == n0 + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=True, window=window).transpose(1, 2)
+    _close(got, ref, TOL_FLASH[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_strided_q_matches_plain_on_gpu(dtype):
+    _need_cuda()
+    B, Sq, Skv, H, KV, d, window = FLASH_STRIDED_Q
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+               for x in flash_inputs(B, Sq, Skv, H, KV, d))
+    qs = strided_view(q)
+    assert not qs.is_contiguous()
+    got = flash_ops.attention(qs, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         causal=True, window=window).transpose(1, 2)
     _close(got, ref, TOL_FLASH[dtype])
@@ -107,6 +123,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros((1, 8, 2, 256), device="cuda")
     with pytest.raises(ValueError):
         flash_ops.attention(x, x, x)
+    xb = torch.zeros((1, 8, 2, 40), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):         # bf16 d not a multiple of 16
+        flash_ops.attention(xb, xb, xb)
+    wide = torch.zeros((1, 8, 2, 72), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):         # base off TMA's 16-byte alignment
+        flash_ops.attention(wide[..., 4:68], wide[..., :64], wide[..., :64])
     xs = torch.zeros((1, 8, 2, 4), device="cuda")
     bc = torch.zeros((1, 8, 1, 256), device="cuda")
     dt = torch.zeros((1, 8, 2), device="cuda")

@@ -14,7 +14,18 @@ FLASH_CASES = [
     (1, 128, 128, 6, 2, 128, 32),      # GQA 3x, window
     (2, 128, 128, 14, 2, 64, 0),       # qwen2: rep 7
     (1, 100, 230, 14, 2, 64, 48),      # rep 7, Skv > Sq, window, ragged
+    # edges of the tensor-core kernel's 64 x 64 tiles, at rep 7
+    (2, 1, 130, 14, 2, 64, 0),         # one query row
+    (1, 63, 63, 14, 2, 64, 0),         # a row short of a tile
+    (1, 65, 65, 14, 2, 64, 0),         # a row past a tile
+    (2, 100, 101, 14, 2, 64, 0),       # Skv = Sq + 1
+    (1, 130, 130, 14, 2, 32, 0),       # d = 32 instance
+    (1, 130, 130, 14, 2, 128, 0),      # d = 128 instance (two TMA boxes)
+    (1, 70, 90, 14, 2, 80, 0),         # d = 80 runs in the 128 instance
+    (1, 200, 200, 14, 2, 64, 20),      # window shorter than a key tile
 ]
+# a q that is a strided view, (B,H,Sq,d) storage read as (B,Sq,H,d)
+FLASH_STRIDED_Q = (2, 96, 96, 14, 2, 64, 0)
 PAGED_CASES = [
     (3, 8, 2, 64, 16, 16, 6),
     (2, 4, 4, 32, 8, 8, 4),
@@ -42,6 +53,12 @@ def flash_inputs(B, Sq, Skv, H, KV, d, seed=0):
     return (rng.normal(size=(B, Sq, H, d)).astype(np.float32),
             rng.normal(size=(B, Skv, KV, d)).astype(np.float32),
             rng.normal(size=(B, Skv, KV, d)).astype(np.float32))
+
+
+def strided_view(t):
+    """The same values as a non-contiguous view whose last dim stays
+    contiguous: dims 1 and 2 swapped in storage."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 def paged_inputs(B, H, KV, d, nb, bs, maxb, seed=0):
