@@ -7,13 +7,17 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
 Four phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-           (one nvcc per source, in parallel) and print the card's name and
-           power limit;
+           (one nvcc per source, in parallel), print the card's name and
+           power limit, ptxas's registers and spills, and the HGMMA
+           (wgmma) instructions of each flash kernel, failing if the bf16
+           instances hold none;
 2. kernels hold each kernel against its plain PyTorch version in bf16 and
            f32, the attention kernels at qwen2-0.5b shapes (14 heads over 2
-           kv heads, head_dim 64) and the SSD scan at mamba2-780m's (48
+           kv heads, head_dim 64; flash also over the tests' cases, tile
+           edges and a strided q) and the SSD scan at mamba2-780m's (48
            heads, P 64, N 128, one group), then time kernel, plain version
-           and bound with CUDA events;
+           and bound with CUDA events (flash also at B=8, S=1024, and its
+           and SDPA's device time under torch.profiler);
 3. qwen2   full-width qwen2-0.5b (random bf16 weights, seed 0) behind
            ``CompletionsAPI`` over ``InferenceEngine(device="cuda")``, on the
            paged and then the dense KV backend, counting kernel launches;
@@ -100,6 +104,25 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_us(e) -> float:
+    """Device time (us) of a torch.profiler key-average row."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of every kernel ``fn()`` launches, summed over
+    ``iters`` calls under torch.profiler: the time the card is busy, with
+    the host's launch cost left out."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()) / iters / 1e3
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -128,7 +151,8 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s: {[p.name for p in paths.values()]}")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                       "Performance", "warning")):
                 log(f"[build] {name}: {line.strip()}")
     hgmma = sass_hgmma(paths["flash_attention"])
     wgmma = {fn: n for fn, n in hgmma.items() if "flash_wgmma_kernel" in fn}
@@ -276,13 +300,19 @@ def time_flash(B, S, H, KV, d, gen):
     k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
     v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms = cuda_ms(lambda: flash_ops.attention(q, k, v, causal=True))
+    def kernel():
+        return flash_ops.attention(q, k, v, causal=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms = cuda_ms(kernel)
     plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=20)
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib = cuda_ms(sdpa)
     b_ms, b_by = bound(*flash_work(B, S, S, H, KV, d, 0, 2), dtype)
     return dict(shape=f"B={B} S={S} H={H} KV={KV} d={d}", ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa))
 
 
 def phase_kernels():
@@ -689,9 +719,6 @@ def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
     dev_ms = sum(dev_us(e) for e in events) / steps / 1e3

@@ -8,28 +8,30 @@
 // (B, Sq, H, d) and k, v as (B, Skv, KV, d) in place through their strides;
 // rows past Sq and keys past Skv are masked here, nothing is padded.
 //
-// Two kernels, chosen by dtype alone:
+// Two kernels, chosen by dtype alone.
 //
-// bf16: `flash_wgmma_kernel<D>`, D in {32, 64, 128} (a head dim d that is a
-// multiple of 16 runs in the smallest D >= d; TMA fills columns d..D with
-// zeros).  What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
-// serving engine's bucketed prefill (B = 4, S = 128, 14 heads over 2, d = 64)
-// bytes, 2.1 MB against 118 MFLOP, 0.6 us: far below the time of one launch,
-// so the call is bound by latency: getting a tile in and out of one SM.  At a
-// full batch of long prompts (B = 8, S = 1024) operations: 15 GFLOP, 15 us,
-// against 34 MB, 10 us.  The design:
-//   * one block per (64-query tile, query head, row); its one warpgroup (128
-//     threads) owns the 64 query rows, so small prompts still spread over
-//     the SMs;
+// bf16: `flash_wgmma_kernel<D>`, D in {32, 64, 128}; a head dim d that is a
+// multiple of 16 runs in the smallest D >= d, TMA filling columns d..D with
+// zeros.  What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s), at qwen2's
+// heads (14 over 2, d = 64):
+//   * the serving engine's bucketed prefill, B = 4, S = 128: bytes, 2.1 MB
+//     against 118 MFLOP, 0.6 us.  That is far below one launch, so the call
+//     is bound by latency: one tile's trip into an SM and out;
+//   * a full batch of long prompts, B = 8, S = 1024: operations, 15 GFLOP in
+//     15 us, against 34 MB in 10 us.
+// The design:
+//   * one block per (query head, row, 64-query tile), the tiles with the most
+//     keys launched first; its one warpgroup (128 threads) owns the 64 query
+//     rows, so that small prompts still spread over the SMs;
 //   * Q and a ring of two K/V stages stay in bf16 in shared memory, filled by
 //     TMA (one 4-d tensor map per operand, built on the host from pointer,
 //     shape and strides; mbarrier completion) in the 128-byte (64-byte at
 //     D = 32) swizzle that the wgmma descriptors name.  Thread 0 issues the
-//     copy of key tile j + 1 before the math of tile j.  Out-of-range rows,
-//     keys and columns arrive as zeros;
+//     copy of key tile j + 1 before the math of tile j.  Rows, keys and
+//     columns out of range arrive as zeros;
 //   * S = Q K^T is D / 16 `wgmma.m64n64k16` steps, bf16 in, f32 out in
-//     registers; whole key tiles that the causal mask or the window hides are
-//     skipped, and only tiles that cross the diagonal, the window edge or
+//     registers.  Whole key tiles that the causal mask or the window hides
+//     are skipped; only tiles that cross the diagonal, the window edge or
 //     Skv are masked;
 //   * the online softmax stays in registers: a query row's 64 scores lie on
 //     the 4 lanes of a quad, so its max takes 2 shuffles; m and l are f32
@@ -61,6 +63,7 @@ namespace {
 constexpr int kBQ = 64;       // query rows per block
 constexpr int kBK = 64;       // keys per tile
 constexpr int kMaxD = 128;
+constexpr int kStages = 2;    // K/V tiles in flight (bf16 kernel)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- f32
@@ -354,9 +357,9 @@ struct Tiles {
   static constexpr int kChunkBytes = kBQ * kSwB;        // one box: 64 rows
   static constexpr int kTile = kBQ * D * 2;             // Q, K or V tile, bf16
   static constexpr uint64_t kLayout = kSwB == 128 ? 1 : 2;
-  // Q, then K and V of stages 0 and 1, then three mbarriers; 1 KB of slack
-  // to align the tiles to the swizzle's 1024-byte period
-  static constexpr size_t kSmem = 5 * (size_t)kTile + 64 + 1024;
+  // Q, then K and V of each stage, then the mbarriers; 1 KB of slack to
+  // align the tiles to the swizzle's 1024-byte period
+  static constexpr size_t kSmem = (1 + 2 * kStages) * (size_t)kTile + 8 * (1 + kStages) + 1024;
 };
 
 template <int D>
@@ -372,7 +375,7 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t bar_q = base + 5 * T::kTile;
+  const uint32_t bar_q = base + (1 + 2 * kStages) * T::kTile;
   auto k_s = [&](int s) { return base + T::kTile * (1 + 2 * s); };
   auto v_s = [&](int s) { return base + T::kTile * (2 + 2 * s); };
   auto bar_kv = [&](int s) { return bar_q + 8 * (1 + s); };
@@ -380,10 +383,12 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int g = h / (H / KV);
-  const int q_lo = blockIdx.x * kBQ;
+  // the last query tiles see the most keys under the causal mask: they go
+  // first, for every head and row, and the short ones fill the tail
+  const int q_lo = (gridDim.z - 1 - blockIdx.z) * kBQ;
   const int n_rows = min(kBQ, Sq - q_lo);
   const int qa_lo = q_lo + Skv - Sq;     // absolute position of the tile's row 0
   const int qa_hi = qa_lo + n_rows - 1;
@@ -404,8 +409,7 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
-    mbar_init(bar_kv(0), 1);
-    mbar_init(bar_kv(1), 1);
+    for (int st = 0; st < kStages; ++st) mbar_init(bar_kv(st), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
 #pragma unroll
     for (int c = 0; c < T::kChunks; ++c)
       tma_load(q_s + c * T::kChunkBytes, &tm_q, bar_q, c * T::kSwE, h, q_lo, b);
-    if (n_tiles > 0) load_kv(0, t_begin);
+    for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) load_kv(j, t_begin + j);
   }
 
   // accumulator fragment: this thread holds rows r0 and r0 + 8 of the tile,
@@ -429,9 +433,10 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
 
   mbar_wait(bar_q, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j & 1;
-    if (tid == 0 && j + 1 < n_tiles) load_kv(s ^ 1, t_begin + j + 1);
-    mbar_wait(bar_kv(s), (j >> 1) & 1);
+    const int s = j % kStages;
+    const int jn = j + kStages - 1;        // the tile whose copy starts now
+    if (tid == 0 && jn < n_tiles) load_kv(jn % kStages, t_begin + jn);
+    mbar_wait(bar_kv(s), (j / kStages) & 1);
     const int k0 = (t_begin + j) * kBK;
 
     // S = Q K^T
@@ -508,7 +513,7 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<D / 2>(o);
-    __syncthreads();                       // stage s is free for tile j + 2
+    __syncthreads();                       // stage s is free for tile j + kStages
   }
 
   // epilogue: O / max(l, floor) in bf16 through shared memory (the stage-0
@@ -591,7 +596,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)T::kSmem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
   flash_wgmma_kernel<D><<<grid, 128, T::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV, d, scale,
       causal, window);

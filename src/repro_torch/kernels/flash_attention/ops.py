@@ -21,16 +21,9 @@ launches = 0
 def _strides(t) -> tuple[int, int, int]:
     """Element strides of dims 0..2; a dim of size 1 is never stepped, so
     it takes its contiguous stride (TMA wants multiples of 16 bytes)."""
-    _, S, n, d = t.shape
-    dense = (S * n * d, n * d, d)
-    return tuple(t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3))
-
-
-def _check_tma(name: str, t, st) -> None:
-    if t.data_ptr() % 16 or any(s % 8 for s in st):
-        raise ValueError(f"attention: bf16 {name} needs a 16-byte aligned base "
-                         f"and strides that are multiples of 8 elements, got "
-                         f"strides {tuple(t.stride())}")
+    b, S, n, d = t.shape
+    sb, ss, sh, _ = t.stride()
+    return (sb if b > 1 else S * n * d, ss if S > 1 else n * d, sh if n > 1 else d)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -57,17 +50,19 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head_dim {d} > 128 is not supported")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k, v must be contiguous")
-    st = [_strides(t) for t in (q, k, v)]
+    st = _strides(q) + _strides(k) + _strides(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     if q.dtype == torch.bfloat16:
         if d % 16:
             raise ValueError(f"bf16 head_dim {d} is not a multiple of 16")
-        for name, t, s in zip("qkv", (q, k, v), st):
-            _check_tma(name, t, s)
+        if any(p % 16 for p in ptrs) or any(x % 8 for x in st):
+            raise ValueError("attention: bf16 q, k, v need 16-byte aligned bases "
+                             "and strides that are multiples of 8 elements (TMA), "
+                             f"got strides {[t.stride() for t in (q, k, v)]}")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     fn = build.launcher("flash_attention")
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, H, KV, d, *st[0], *st[1], *st[2],
+    rc = fn(*ptrs, out.data_ptr(), B, Sq, Skv, H, KV, d, *st,
             float(scale), int(causal), int(window), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
