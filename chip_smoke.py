@@ -9,15 +9,18 @@ Four phases, each fatal on failure:
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
            power limit, ptxas's registers and spills, and the HGMMA
-           (wgmma) instructions of each flash kernel, failing if the bf16
-           instances hold none;
+           (wgmma) instructions of every kernel, failing if a bf16 flash or
+           SSD-scan instance holds none;
 2. kernels hold each kernel against its plain PyTorch version in bf16 and
            f32, the attention kernels at qwen2-0.5b shapes (14 heads over 2
            kv heads, head_dim 64; flash also over the tests' cases, tile
            edges and a strided q) and the SSD scan at mamba2-780m's (48
-           heads, P 64, N 128, one group), then time kernel, plain version
-           and bound with CUDA events (flash also at B=8, S=1024, and its
-           and SDPA's device time under torch.profiler);
+           heads, P 64, N 128, one group; also at the strongest decay its
+           initialisation allows), then time kernel, plain version and
+           bound with CUDA events, and each kernel's device time under
+           torch.profiler (flash also at B=8, S=1024 and beside SDPA;
+           paged decode also at uniform contexts), failing unless a paged
+           call is one kernel;
 3. qwen2   full-width qwen2-0.5b (random bf16 weights, seed 0) behind
            ``CompletionsAPI`` over ``InferenceEngine(device="cuda")``, on the
            paged and then the dense KV backend, counting kernel launches;
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -109,10 +113,11 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_profile(fn, iters: int = 20) -> tuple[float, list[str]]:
     """Device time per call of every kernel ``fn()`` launches, summed over
-    ``iters`` calls under torch.profiler: the time the card is busy, with
-    the host's launch cost left out."""
+    ``iters`` calls under torch.profiler (the time the card is busy, with
+    the host's launch cost left out), and the names of the device
+    functions that ran."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -120,7 +125,12 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(dev_us(e) for e in prof.key_averages()) / iters / 1e3
+    rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+    return sum(dev_us(e) for e in rows) / iters / 1e3, sorted(e.key for e in rows)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    return device_profile(fn, iters)[0]
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -154,12 +164,17 @@ def phase_build():
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "Performance", "warning")):
                 log(f"[build] {name}: {line.strip()}")
-    hgmma = sass_hgmma(paths["flash_attention"])
-    wgmma = {fn: n for fn, n in hgmma.items() if "flash_wgmma_kernel" in fn}
-    log(f"[build] HGMMA instructions per flash_attention kernel: {json.dumps(hgmma)}")
-    check(len(wgmma) == 3 and all(wgmma.values()),
-          f"the bf16 flash instances hold no HGMMA instruction: {wgmma}")
-    return sum(wgmma.values())
+    counts = {name: sass_hgmma(path) for name, path in paths.items()}
+    for name, c in counts.items():
+        log(f"[build] HGMMA instructions per {name} kernel: {json.dumps(c)}")
+    # the bf16 instances run on wgmma; the f32 kernels and paged decode
+    # hold none
+    for name, key, n in (("flash_attention", "flash_wgmma_kernel", 3),
+                         ("ssd_scan", "ssd_wgmma_kernel", 1)):
+        wgmma = {fn: k for fn, k in counts[name].items() if key in fn}
+        check(len(wgmma) == n and all(wgmma.values()),
+              f"the bf16 {name} instances hold no HGMMA instruction: {wgmma}")
+    return {name: sum(c.values()) for name, c in counts.items()}
 
 
 def sass_hgmma(path) -> dict[str, int]:
@@ -211,14 +226,22 @@ def flash_work(B, Sq, Skv, H, KV, d, window, itemsize):
     return nbytes, 4.0 * B * H * d * float(vis.sum())
 
 
-def ssd_inputs(b, S, H, P, N, G, dtype, gen, tail=0):
+def ssd_inputs(b, S, H, P, N, G, dtype, gen, tail=0, strong=False):
     """At the reference test's scales; dt = 0 and x = 0 on row 0's last
-    ``tail`` positions (the model's true_len masking)."""
+    ``tail`` positions (the model's true_len masking).  ``strong``: the
+    strongest decay mamba2's initialisation allows, dt in [0.09, 0.1] and
+    A in [-16, -1] (-16 on head 0), da down to -1.6 per token."""
     x = torch.randn((b, S, H, P), generator=gen, device=DEV)
     B = torch.randn((b, S, G, N), generator=gen, device=DEV) * 0.5
     C = torch.randn((b, S, G, N), generator=gen, device=DEV) * 0.5
-    dt = torch.rand((b, S, H), generator=gen, device=DEV) * 0.19 + 0.01
-    da = -dt * (torch.rand((b, S, H), generator=gen, device=DEV) * 1.5 + 0.5)
+    if strong:
+        dt = torch.rand((b, S, H), generator=gen, device=DEV) * 0.01 + 0.09
+        A = torch.rand((H,), generator=gen, device=DEV) * 15 + 1
+        A[0] = 16.0
+        da = -dt * A
+    else:
+        dt = torch.rand((b, S, H), generator=gen, device=DEV) * 0.19 + 0.01
+        da = -dt * (torch.rand((b, S, H), generator=gen, device=DEV) * 1.5 + 0.5)
     if tail:
         for t in (x, dt, da):
             t[0, S - tail:] = 0.0
@@ -256,22 +279,24 @@ def check_ssd(worst):
 
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     H, P, N, G = 48, 64, 128, 1
-    cases = [(2, 256, 256, 0), (4, 512, 256, 0), (1, 1024, 256, 0),
-             (2, 256, 64, 0), (1, 512, 256, 137)]
+    cases = [(2, 256, 256, 0, False), (4, 512, 256, 0, False),
+             (1, 1024, 256, 0, False), (2, 256, 64, 0, False),
+             (1, 512, 256, 137, False), (2, 256, 128, 0, True)]
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[("ssd", dtype)]
-        for b, S, Q, tail in cases:
-            args = ssd_inputs(b, S, H, P, N, G, dtype, gen, tail)
+        for b, S, Q, tail, strong in cases:
+            args = ssd_inputs(b, S, H, P, N, G, dtype, gen, tail, strong)
             y, h = ssd_ops.ssd_scan(*args, chunk=Q)
             torch.cuda.synchronize()
             yr, hr = ssd_scan_ref(*args, chunk=Q)
             (ey, oky), (eh, okh) = max_err(y, yr, tol), max_err(h, hr, tol)
             worst["ssd_scan"] = max(worst["ssd_scan"], ey, eh)
             log(f"[kernels] ssd_scan {str(dtype)[6:]} b={b} S={S} H={H} P={P} "
-                f"N={N} G={G} chunk={Q} dt0_tail={tail}: max_abs_err y={ey:.3e} "
-                f"h_last={eh:.3e} (max |y| {float(yr.abs().max()):.3e})")
-            check(oky and okh, f"ssd_scan {dtype} b={b} S={S} chunk={Q} "
-                               f"tail={tail} disagrees with its plain version")
+                f"N={N} G={G} chunk={Q} dt0_tail={tail} strong_decay={strong}: "
+                f"max_abs_err y={ey:.3e} h_last={eh:.3e} "
+                f"(max |y| {float(yr.abs().max()):.3e})")
+            check(oky and okh, f"ssd_scan {dtype} b={b} S={S} chunk={Q} tail={tail} "
+                               f"strong={strong} disagrees with its plain version")
     args = ssd_inputs(1, 64, 2, 8, 4, 1, torch.float32, gen)
     y, h = ssd_ops.ssd_scan(*args, chunk=16)
     ys, hs = ssd_recurrence(*args)
@@ -283,11 +308,21 @@ def check_ssd(worst):
     # one bucket-512 prefill group of mamba2 (4 rows), bf16 inputs
     b, S, Q = 4, 512, 256
     args = ssd_inputs(b, S, H, P, N, G, torch.bfloat16, gen)
-    ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=Q))
+    def kernel():
+        return ssd_ops.ssd_scan(*args, chunk=Q)
+    ms = cuda_ms(kernel)
     plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=Q), iters=20)
     b_ms, b_by = bound(*ssd_work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    dev, names = device_profile(kernel)
+    # device time by row count at S = 512: one row's 48 blocks leave most
+    # SMs idle, so b = 1 reads one block's walk of the sequence
+    by_rows = {}
+    for rows in (1, 2, 8):
+        a = ssd_inputs(rows, S, H, P, N, G, torch.bfloat16, gen)
+        by_rows[rows] = device_ms(lambda: ssd_ops.ssd_scan(*a, chunk=Q))
+    return dict(shape=f"b={b} S={S} H={H} P={P} N={N} G={G}", ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                device_ms=dev, device_kernels=names, device_ms_by_rows=by_rows)
 
 
 def time_flash(B, S, H, KV, d, gen):
@@ -371,11 +406,25 @@ def phase_kernels():
     dtype = torch.bfloat16
     rows = {}
     args = paged_inputs(B, H, KV, d, bs, max_blk, ctx, dtype, gen)
-    ms = cuda_ms(lambda: paged_ops.paged_decode_attention(*args))
+    def paged():
+        return paged_ops.paged_decode_attention(*args)
+    ms = cuda_ms(paged)
     plain = cuda_ms(lambda: paged_attention_ref(*args), iters=20)
     b_ms, b_by = bound(*paged_work(B, H, KV, d, max_blk, ctx, 2), dtype)
-    rows["paged_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=None)
+    dev, names = device_profile(paged)
+    check(len(names) == 1, f"paged_attention: {len(names)} kernels per call: {names}")
+    # device time with every row at one context length: what the live
+    # splits cost, from one split (ctx <= 64) to sixteen
+    by_ctx = {}
+    for c in (1, 64, 300, 1024):
+        a = paged_inputs(B, H, KV, d, bs, max_blk, [c] * B, dtype, gen)
+        by_ctx[c] = device_ms(lambda: paged_ops.paged_decode_attention(*a))
+    rows["paged_attention"] = dict(shape=f"B={B} H={H} KV={KV} d={d} bs={bs} "
+                                         f"max_blk={max_blk} ctx={ctx}",
+                                   ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None,
+                                   device_ms=dev, device_kernels=names,
+                                   device_ms_by_uniform_ctx=by_ctx)
     rows["flash_attention"] = time_flash(Bf, 128, H, KV, d, gen)
     rows["flash_attention"].update(
         {f"long_{key}": val for key, val in
@@ -724,12 +773,18 @@ def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
     dev_ms = sum(dev_us(e) for e in events) / steps / 1e3
     top = [(e.key, round(dev_us(e) / steps / 1e3, 4), e.count // steps)
            for e in events[:10] if dev_us(e) > 0]
+    # the port's own kernels, wherever they rank
+    ours = [(re.search(r"\w+_kernel", e.key).group(0), round(dev_us(e) / steps / 1e3, 4),
+             e.count // steps)
+            for e in events if "repro::" in e.key and dev_us(e) > 0]
     report = {"model": cfg.name, "backend": backend,
               "decode_step_wall_ms": round(wall_ms, 3),
               "decode_step_device_ms": round(dev_ms, 3) if dev_ms else "not measured",
               "device_busy_share": round(dev_ms / wall_ms, 3) if dev_ms else "not measured",
+              "port_kernels_ms_per_step_and_calls": ours,
               "top_ops_ms_per_step_and_calls": top}
     log(f"[profile] {json.dumps(report)}")
+    return report
 
 
 def load_model(arch: str):
@@ -751,7 +806,7 @@ def phase_qwen():
     for b in ("paged", "dense"):
         stats[b] = serve(cfg, params, b, buckets, serve_traffic(cfg.vocab_size))
         check_qwen_serve(cfg, stats[b], b)
-    profile_decode(cfg, params, "paged", buckets)
+    stats["decode_profile"] = profile_decode(cfg, params, "paged", buckets)
     compare_paths(cfg, params, torch.bfloat16)
     compare_paths(cfg, params, torch.float32)
     return stats
@@ -767,6 +822,17 @@ def phase_mamba():
     return stats
 
 
+def log_engine(prof, mamba) -> None:
+    """Engine-level numbers, a report: the qwen2 paged decode step's device
+    time by op and the mamba2 serving run's prefill seconds."""
+    ops = [(k[:48], ms, n) for k, ms, n in prof["top_ops_ms_per_step_and_calls"][:5]]
+    log(f"[engine] qwen2 paged decode step device ms {prof['decode_step_device_ms']} "
+        f"(wall {prof['decode_step_wall_ms']}), port kernels "
+        f"{json.dumps(prof['port_kernels_ms_per_step_and_calls'])}, by op "
+        f"{json.dumps(ops)}; mamba2 serving prefill {mamba['prefill_s']} s of "
+        f"{mamba['wall_s']} s wall, {mamba['launches']['ssd_scan']} SSD-scan launches")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -778,9 +844,11 @@ def main() -> int:
     try:
         hgmma = phase_build()
         rows = phase_kernels()
-        rows["flash_attention"]["hgmma"] = hgmma
+        for name, n in hgmma.items():
+            rows[name]["hgmma"] = n
         stats = phase_qwen()
         stats["mamba2"] = phase_mamba()
+        log_engine(stats["decode_profile"], stats["mamba2"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

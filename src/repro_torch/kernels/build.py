@@ -27,7 +27,7 @@ _vp, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 # C signature of each library's launch function: (symbol, argtypes)
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
-                        [_vp] * 8 + [_i] * 8 + [_f, _i, _i, _vp]),
+                        [_vp] * 9 + [_i] * 7 + [_f, _i, _i, _vp]),
     "flash_attention": ("flash_attention_launch",
                         [_vp] * 4 + [_i] * 6 + [_ll] * 9 + [_f, _i, _i, _i, _vp]),
     "ssd_scan": ("ssd_scan_launch", [_vp] * 7 + [_i] * 7 + [_vp]),

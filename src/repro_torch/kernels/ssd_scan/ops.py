@@ -13,13 +13,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 launches = 0
-MAX_STATE = 128          # the kernel's register tiles cover N <= 128
+MAX_STATE = 128          # both kernels cover N <= 128
+MAX_HEAD_DIM_BF16 = 64   # the bf16 (wgmma) kernel's instance: P <= 64
 
 
 def ssd_scan(x, B, C, dt, da, *, chunk: int):
     """x (b,S,H,P) and B,C (b,S,G,N) float32 or bfloat16, H % G == 0;
     dt,da (b,S,H) float32; S a multiple of ``chunk``.
-    Returns (y (b,S,H,P) f32, h_last (b,H,P,N) f32)."""
+    Returns (y (b,S,H,P) f32, h_last (b,H,P,N) f32).
+
+    On the GPU the kernel's tiles need not be ``chunk``: the chunked form
+    is the same function for any tile length.  bf16 runs the tensor-core
+    kernel, which takes P <= 64 and N <= 128, multiples of 16, and 16-byte
+    aligned x, B, C (TMA); f32 runs the CUDA-core kernel, N <= 128."""
     global launches
     tensors = (x, B, C, dt, da)
     if all(t.device.type == "cpu" for t in tensors):
@@ -44,6 +50,11 @@ def ssd_scan(x, B, C, dt, da, *, chunk: int):
         raise TypeError("dt and da must be float32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan takes contiguous tensors")
+    if x.dtype == torch.bfloat16 and (P > MAX_HEAD_DIM_BF16 or P % 16 or N % 16 or any(
+            t.data_ptr() % 16 for t in (x, B, C))):
+        raise ValueError(f"bf16 ssd_scan takes P <= {MAX_HEAD_DIM_BF16} and "
+                         f"N <= {MAX_STATE}, multiples of 16, and 16-byte "
+                         f"aligned x, B, C; got P={P}, N={N}")
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     fn = build.launcher("ssd_scan")

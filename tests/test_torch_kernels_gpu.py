@@ -15,9 +15,10 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from torch_kernel_cases import (FLASH_CASES, FLASH_STRIDED_Q, PAGED_CASES,
-                                SSD_CASES, SSD_FULL_WIDTH, TOL_FLASH, TOL_PAGED,
-                                TOL_SSD, flash_inputs, paged_inputs, ssd_inputs,
-                                ssd_recurrence, strided_view)
+                                PAGED_EDGES, SSD_CASES, SSD_FULL_WIDTH,
+                                SSD_STRONG_DECAY, TOL_FLASH, TOL_PAGED, TOL_SSD,
+                                flash_inputs, paged_edge_inputs, paged_inputs,
+                                ssd_inputs, ssd_recurrence, strided_view)
 
 
 def _close(got: torch.Tensor, ref: torch.Tensor, tol: float):
@@ -80,6 +81,47 @@ def test_paged_kernel_matches_plain_on_gpu(B, H, KV, d, nb, bs, maxb, dtype):
     _close(got, paged_attention_ref(*args), TOL_PAGED[dtype])
 
 
+def _paged_cuda(arrays, dtype):
+    q, kp, vp, table, ctx = arrays
+    dt = getattr(torch, dtype)
+    return (torch.from_numpy(q).to(dt).cuda(), torch.from_numpy(kp).to(dt).cuda(),
+            torch.from_numpy(vp).to(dt).cuda(), torch.from_numpy(table).cuda(),
+            torch.from_numpy(ctx).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,maxb,ctx", PAGED_EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_edges_on_gpu(bs, maxb, ctx, dtype):
+    """ctx 0 (exactly 0), 1, a multiple of the 64-token split, the full
+    table, pages that splits cross; -1 tails throughout."""
+    _need_cuda()
+    args = _paged_cuda(paged_edge_inputs(bs, maxb, ctx), dtype)
+    got = paged_ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _close(got, paged_attention_ref(*args), TOL_PAGED[dtype])
+    for b, c in enumerate(ctx):
+        if c == 0:
+            assert bool((got[b] == 0).all()), "a ctx=0 row must come out as 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_kernel_twice_on_different_contexts_on_gpu(dtype):
+    """Back-to-back calls of one shape share the split counters: a counter
+    left unreset would skip or misplace the next call's merge."""
+    _need_cuda()
+    bs, maxb, _ = PAGED_EDGES[3]
+    long_ctx = (128, 100, 0, 128)
+    short_ctx = (65, 1, 130, 64)
+    for ctx in (long_ctx, short_ctx, long_ctx, long_ctx):
+        args = _paged_cuda(paged_edge_inputs(bs, maxb, tuple(min(c, maxb * bs) for c in ctx),
+                                             seed=sum(ctx)), dtype)
+        got = paged_ops.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        _close(got, paged_attention_ref(*args), TOL_PAGED[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,S,H,P,N,Q,G", SSD_CASES + [SSD_FULL_WIDTH])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -96,6 +138,35 @@ def test_ssd_kernel_matches_plain_on_gpu(b, S, H, P, N, Q, G, dtype):
     yr, hr = ssd_scan_ref(x, B, C, dt, da, chunk=Q)
     _close(y, yr, TOL_SSD)
     _close(h, hr, TOL_SSD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_strong_decay_on_gpu(dtype):
+    """da near -1.6 per token: exp above the diagonal overflows inside a
+    tile unless the mask comes first."""
+    _need_cuda()
+    b, S, H, P, N, Q, G = SSD_STRONG_DECAY
+    dt_ = getattr(torch, dtype)
+    x, B, C, dt, da = (torch.from_numpy(a).cuda()
+                       for a in ssd_inputs(b, S, H, P, N, G, strong_decay=True))
+    x, B, C = x.to(dt_), B.to(dt_), C.to(dt_)
+    y, h = ssd_ops.ssd_scan(x, B, C, dt, da, chunk=Q)
+    torch.cuda.synchronize()
+    yr, hr = ssd_scan_ref(x, B, C, dt, da, chunk=Q)
+    _close(y, yr, TOL_SSD)
+    _close(h, hr, TOL_SSD)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_rejects_shapes_no_instance_holds():
+    _need_cuda()
+    for P, N in ((80, 64), (24, 64), (64, 136), (64, 40)):
+        x = torch.zeros((1, 64, 2, P), device="cuda", dtype=torch.bfloat16)
+        bc = torch.zeros((1, 64, 1, N), device="cuda", dtype=torch.bfloat16)
+        dt = torch.zeros((1, 64, 2), device="cuda")
+        with pytest.raises(ValueError):
+            ssd_ops.ssd_scan(x, bc, bc, dt, dt, chunk=64)
 
 
 @pytest.mark.gpu

@@ -43,6 +43,19 @@ SSD_CASES = [
     (2, 96, 4, 16, 16, 32, 1),         # grouped: 4 heads read one B/C
 ]
 SSD_FULL_WIDTH = (2, 512, 48, 64, 128, 256, 1)
+# mamba2's draw of A and dt: da down to -1.6 per token, so that inside a
+# 64-token tile exp(cum_q - cum_t) above the diagonal overflows f32
+SSD_STRONG_DECAY = (2, 256, 4, 64, 128, 128, 1)
+# edges of the one-launch paged kernel's live splits (64 tokens each), on
+# qwen2's heads: (bs, max_blk, context per row); every table has -1 tails
+PAGED_EDGE_HEADS = (14, 2, 64)         # H, KV, d
+PAGED_EDGES = [
+    (16, 8, (0, 5, 0)),                # ctx 0 rows come out as exactly 0
+    (16, 8, (1, 1, 17)),               # one token
+    (16, 8, (64, 128, 63, 65)),        # an exact multiple of the split
+    (16, 8, (128, 100, 0, 128)),       # the full table
+    (12, 11, (64, 132, 1, 0)),         # pages of 12: splits cross pages
+]
 TOL_FLASH = {"float32": 2e-5, "bfloat16": 2e-2}
 TOL_PAGED = {"float32": 2e-5, "bfloat16": 3e-2}
 TOL_SSD = 2e-4
@@ -84,16 +97,44 @@ def paged_inputs(B, H, KV, d, nb, bs, maxb, seed=0):
     return q, kp, vp, table, ctx.astype(np.int32)
 
 
-def ssd_inputs(b, S, H, P, N, G, seed=0, tail=0):
+def paged_edge_inputs(bs, maxb, ctx, seed=0):
+    """Inputs of a PAGED_EDGES case: each row's pages drawn at random from
+    the pool, -1 past its context."""
+    H, KV, d = PAGED_EDGE_HEADS
+    rng = np.random.default_rng(seed)
+    B = len(ctx)
+    nb = B * maxb
+    perm = rng.permutation(nb).astype(np.int32)
+    table = np.full((B, maxb), -1, np.int32)
+    for b, c in enumerate(ctx):
+        n = -(-c // bs)
+        table[b, :n] = perm[b * maxb: b * maxb + n]
+    q = rng.normal(size=(B, H, d)).astype(np.float32)
+    kp = rng.normal(size=(nb, bs, KV, d)).astype(np.float32)
+    vp = rng.normal(size=(nb, bs, KV, d)).astype(np.float32)
+    return q, kp, vp, table, np.asarray(ctx, np.int32)
+
+
+def ssd_inputs(b, S, H, P, N, G, seed=0, tail=0, strong_decay=False):
     """x, B, C, dt, da at the reference test's scales; B and C (b,S,G,N).
     ``tail`` > 0 zeroes dt and x on each row's last ``tail`` positions, as
-    the model's ``true_len`` masking does."""
+    the model's ``true_len`` masking does.  ``strong_decay`` takes the
+    strongest decay mamba2's initialisation allows (dt in [0.001, 0.1], A in
+    [-16, -1]): dt in [0.09, 0.1], A = -16 on head 0 and in [-16, -1]
+    elsewhere, so da reaches -1.6 per token and, within 64 tokens,
+    cum_q - cum_t above the diagonal passes 88, where exp overflows f32."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, S, H, P)).astype(np.float32)
     B = (rng.normal(size=(b, S, G, N)) * 0.5).astype(np.float32)
     C = (rng.normal(size=(b, S, G, N)) * 0.5).astype(np.float32)
-    dt = rng.uniform(0.01, 0.2, size=(b, S, H)).astype(np.float32)
-    da = (-dt * rng.uniform(0.5, 2.0, size=(b, S, H))).astype(np.float32)
+    if strong_decay:
+        dt = rng.uniform(0.09, 0.1, size=(b, S, H)).astype(np.float32)
+        A = rng.uniform(1.0, 16.0, size=(1, 1, H))
+        A[..., 0] = 16.0
+        da = (-dt * A).astype(np.float32)
+    else:
+        dt = rng.uniform(0.01, 0.2, size=(b, S, H)).astype(np.float32)
+        da = (-dt * rng.uniform(0.5, 2.0, size=(b, S, H))).astype(np.float32)
     if tail:
         x[:, S - tail:] = 0.0
         dt[:, S - tail:] = 0.0
