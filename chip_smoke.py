@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Four phases, each fatal on failure:
+Five phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -27,7 +27,23 @@ Four phases, each fatal on failure:
            then the kernel path's logits against ``use_kernels=False``;
 4. mamba2  full-width mamba2-780m the same way on the dense backend (SSM
            state has no paged form), with bucketed prefills of two chunks
-           through the SSD kernel and a chunked prompt beside decoding rows.
+           through the SSD kernel and a chunked prompt beside decoding rows;
+5. cluster the control plane (``repro_torch.core``): an
+           ``EndpointRegistry`` endpoint of full-width qwen2-0.5b paged
+           replicas sharing one weight tree on the card, routed by the
+           cluster cache directory, scaled by the HPA (one to three
+           replicas and back) and rebalanced and drained by block-granular
+           migration over the simulated transport; 24 requests must all
+           finish, with a scale-up, a decode-phase migration, a
+           directory-routed prefix hit, paged decode launched for adopted
+           rows and gapless per-request token indices.  First a direct
+           round trip: a live decode row extracted on one replica and
+           adopted on another with an empty prefix cache must land bit for
+           bit and decode the same greedy tokens as unmigrated.  Prints
+           each migration's blocks, bytes and extract, transfer and adopt
+           ms, the payload gather and scatter beside their bound, step wall
+           ms by replica count, a profiled window's device busy share and
+           served tokens/s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -822,6 +838,373 @@ def phase_mamba():
     return stats
 
 
+# ---------------------------------------------------------------- cluster
+CLUSTER_ENGINE = dict(capacity=8, max_len=1024, block_size=16,
+                      buckets=(32, 64, 128))
+CLUSTER_MAX_REPLICAS = 3
+CLUSTER_LINK_BLOCKS = 4       # KV blocks a transport link carries per step
+CLUSTER_NEW_TOKENS = 32
+CLUSTER_PROFILE_STEPS = 4     # steps at full scale under torch.profiler
+
+
+def cluster_traffic(vocab: int):
+    """24 requests of 32 new tokens, prompts of 8..400 tokens, a third of
+    them opening with one 64-token prefix.  A burst of 18 arrives two a step
+    over the first 9 steps; a quiet tail of 6 follows from step 34, one
+    every 3 steps.  The fourth request samples (temperature 0.7, top-k 40),
+    the rest are greedy.  Returns ({step: [(rid, prompt)]}, prefix)."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def toks(n):
+        return [int(x) for x in rng.integers(0, vocab, n)]
+
+    prefix = toks(64)
+    burst = [300, 12, 45, 200, 400, 80, 128, 20, 350, 96, 150, 30, 250, 100,
+             16, 180, 60, 320]
+    tail = [(True, 20), (False, 40), (True, 100), (False, 12), (False, 8),
+            (False, 90)]
+    out: dict[int, list] = {}
+    for i, n in enumerate(burst):
+        p = prefix + toks(n - 64) if i % 3 == 0 else toks(n)
+        out.setdefault(i // 2, []).append((i, p))
+    for j, (shared, n) in enumerate(tail):
+        p = prefix + toks(n) if shared else toks(n)
+        out.setdefault(34 + 3 * j, []).append((100 + j, p))
+    return out, prefix
+
+
+class MigrationProbe:
+    """Observes a replica's side of every migration: CUDA events around
+    ``extract_row``, each ``feed_adopt`` and ``commit_adopt``, and the
+    paged-decode launches of every step in which a row this replica adopted
+    is decoding.  It wraps the engine's public methods and changes nothing
+    they do."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.moves: dict[int, list[dict]] = {}     # rid -> its moves, in order
+        self.adopted_steps: list[int] = []         # launches per such step
+        self._tickets: dict[tuple[int, int], int] = {}
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def wrap(self, eng):
+        extract, begin, feed = eng.extract_row, eng.begin_adopt, eng.feed_adopt
+        commit, step = eng.commit_adopt, eng.step
+        adopted: set[int] = set()
+
+        def extract_row(rid, now=None):
+            e0 = self._event()
+            req, payload = extract(rid, now)
+            self.moves.setdefault(rid, []).append(
+                {"extract": (e0, self._event()), "feed": [],
+                 "blocks": payload.get("n_blocks", 0)})
+            return req, payload
+
+        def begin_adopt(req, payload, now=None):
+            ticket = begin(req, payload, now)
+            if ticket is not None:
+                self._tickets[(id(eng), ticket)] = req.rid
+            return ticket
+
+        def feed_adopt(ticket, index, data):
+            e0 = self._event()
+            feed(ticket, index, data)
+            rid = self._tickets[(id(eng), ticket)]
+            self.moves[rid][-1]["feed"].append((e0, self._event()))
+
+        def commit_adopt(ticket, now=None):
+            rid = self._tickets.pop((id(eng), ticket))
+            e0 = self._event()
+            req = commit(ticket, now)
+            self.moves[rid][-1]["commit"] = (e0, self._event())
+            adopted.add(rid)
+            return req
+
+        def step_(now=None):
+            live = adopted & {r.rid for r in eng.row_req.values()}
+            n0 = self.ops.launches
+            st = step(now)
+            if live:
+                self.adopted_steps.append(self.ops.launches - n0)
+            return st
+
+        eng.extract_row, eng.begin_adopt, eng.feed_adopt = (
+            extract_row, begin_adopt, feed_adopt)
+        eng.commit_adopt, eng.step = commit_adopt, step_
+        return eng
+
+    def report(self, events) -> list[dict]:
+        """One row per completed migration event: blocks, bytes, and the
+        extract, transfer (extract end to commit start, both replicas
+        stepping meanwhile) and adopt (every chunk's scatter and the
+        commit) times in ms on the card's timeline."""
+        seen: dict[int, int] = {}
+        rows = []
+        for ev in events:
+            k = seen.get(ev.rid, 0)
+            seen[ev.rid] = k + 1
+            mv = self.moves[ev.rid][k]
+            (x0, x1), (c0, c1) = mv["extract"], mv["commit"]
+            rows.append({
+                "rid": ev.rid, "src": ev.src, "dst": ev.dst, "phase": ev.phase,
+                "blocks": mv["blocks"], "chunks": ev.chunks,
+                "blocks_skipped": ev.blocks_skipped, "bytes": ev.bytes,
+                "bytes_full": ev.bytes_full, "transport_steps": ev.duration_s,
+                "extract_ms": round(x0.elapsed_time(x1), 4),
+                "transfer_ms": round(x1.elapsed_time(c0), 4),
+                "adopt_ms": round(sum(a.elapsed_time(b) for a, b in mv["feed"])
+                                  + c0.elapsed_time(c1), 4)})
+        return rows
+
+
+def cluster_engine_factory(cfg, params):
+    from repro_torch.serving import InferenceEngine
+
+    return lambda: InferenceEngine(cfg, params=params, kv_backend="paged",
+                                   seed=SEED, device=DEV, **CLUSTER_ENGINE)
+
+
+def check_gapless(events, done) -> None:
+    """Every request's token events carry indices 0, 1, ... with no gap or
+    repeat, however many replicas served it, and match its output."""
+    from repro_torch.serving import FirstTokenEvent, TokenEvent
+
+    idx: dict[int, list[int]] = {}
+    for e in events:
+        if isinstance(e, (FirstTokenEvent, TokenEvent)):
+            idx.setdefault(e.rid, []).append(e.index)
+    for r in done:
+        got = idx.get(r.rid, [])
+        check(got == list(range(len(r.output))),
+              f"cluster: rid {r.rid} ({r.migrations} migrations) has token "
+              f"event indices {got[:40]} for {len(r.output)} tokens")
+
+
+def run_cluster(cfg, params):
+    """The cluster trace through an ``EndpointRegistry`` of paged qwen2
+    replicas sharing one weight tree.  Returns the registry, its one
+    orchestrator, the probe, (replicas, wall s) of every step outside the
+    profiled window, the window's (wall s, busy s) and the event stream."""
+    from repro_torch.core import EndpointRegistry, HPAConfig, ModelEndpoint
+    from repro_torch.core.transport import LinkSpec, Transport
+    from repro_torch.serving import Request, SamplingParams
+
+    kops = kernel_ops()
+    ops = kops["paged_attention"]
+    probe = MigrationProbe(ops)
+    make = cluster_engine_factory(cfg, params)
+    # one KV block of every layer: bf16 K and V
+    block_bytes = (2 * cfg.num_layers * CLUSTER_ENGINE["block_size"]
+                   * cfg.num_kv_heads * cfg.head_dim * 2)
+    reg = EndpointRegistry(
+        [ModelEndpoint(
+            name=cfg.name, make_engine=lambda: probe.wrap(make()),
+            kv_backend="paged", max_replicas=CLUSTER_MAX_REPLICAS,
+            lb_policy="directory", cold_start_steps=0,
+            hpa=HPAConfig(metric="queue", target=4.0,
+                          max_replicas=CLUSTER_MAX_REPLICAS, tolerance=0.0,
+                          stabilization_s=8.0, scale_down_cooldown_s=8.0))],
+        transport=Transport(LinkSpec(
+            latency_steps=1, bandwidth=CLUSTER_LINK_BLOCKS * block_bytes)))
+    orch = reg.resolve(cfg.name)
+    arrivals, prefix = cluster_traffic(cfg.vocab_size)
+    reqs, steps, events = [], [], []
+    prof_steps = []
+    t = 0
+    for m in kops.values():
+        m.launches = 0
+    while t < 600:
+        for rid, prompt in arrivals.get(t, []):
+            sampled = rid == 3
+            req = Request(rid=rid, model=cfg.name, prompt=prompt,
+                          sampling=SamplingParams(
+                              max_new_tokens=CLUSTER_NEW_TOKENS,
+                              temperature=0.7 if sampled else 0.0,
+                              top_k=40 if sampled else 0))
+            check(reg.submit(req, now=float(t)),
+                  f"cluster: request {rid} rejected ({req.state})")
+            reqs.append(req)
+        if not reg.pending() and t > max(arrivals):
+            break
+        n_rep = len(orch.engines)
+        window = (n_rep == CLUSTER_MAX_REPLICAS
+                  and len(prof_steps) < CLUSTER_PROFILE_STEPS)
+        if window:
+            prof_steps.append(cluster_profiled_step(reg, t))
+        else:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            reg.step(float(t))
+            torch.cuda.synchronize()
+            steps.append((n_rep, time.perf_counter() - w0))
+        events += reg.drain_events()
+        t += 1
+    return dict(reg=reg, orch=orch, probe=probe, reqs=reqs, prefix=prefix,
+                steps=steps, prof=prof_steps, events=events, n_steps=t,
+                launches={name: m.launches for name, m in kops.items()})
+
+
+def cluster_profiled_step(reg, t) -> tuple[float, float]:
+    """One cluster step under torch.profiler: (wall s, device busy s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        reg.step(float(t))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e6
+    return wall, busy
+
+
+def cluster_round_trip(cfg, params):
+    """Extract a live decode row on replica A and adopt it directly on
+    replica B, whose prefix cache is empty: B's blocks must hold the
+    payload bit for bit, and the row's greedy tokens must equal the same
+    request decoded unmigrated.  Then the device time of the payload's
+    gather and scatter beside their bound.  Returns a report."""
+    from repro_torch.serving import Request, SamplingParams
+
+    make = cluster_engine_factory(cfg, params)
+    prompt = [int(x) for x in
+              np.random.default_rng(SEED + 4).integers(0, cfg.vocab_size, 300)]
+
+    def request():
+        return Request(rid=0, prompt=list(prompt), sampling=SamplingParams(
+            max_new_tokens=CLUSTER_NEW_TOKENS))
+
+    def finish(eng, t):
+        while eng.pending():
+            eng.step(float(t))
+            t += 1
+        return list(eng.finished[0].output)
+
+    ref = make()
+    ref.submit(request(), now=0.0)
+    want = finish(ref, 0)
+    a, b = make(), make()
+    a.submit(request(), now=0.0)
+    t = 0
+    while len(a.row_req) == 0 or len(next(iter(a.row_req.values())).output) < 8:
+        a.step(float(t))
+        t += 1
+    check(b.prefix.cached_blocks == 0 and b.prefix.used_blocks == 0,
+          "round trip: B's prefix cache is not empty")
+    torch.cuda.synchronize()
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    e[0].record()
+    req, payload = a.extract_row(0, now=float(t))
+    e[1].record()
+    check(b.adopt(req, payload, now=float(t)), "round trip: B refused the row")
+    e[2].record()
+    torch.cuda.synchronize()
+    ids = list(b._row_blocks[req.row][: payload["n_blocks"]])
+    held = b._gather_blocks(ids)
+    for i, (got, sent) in enumerate(zip(held, payload["blocks"])):
+        for n in sent:
+            check(torch.equal(got[n], sent[n]),
+                  f"round trip: layer {i} {n} differs from the payload on B")
+    got = finish(b, t)
+    check(got == want, f"round trip: migrated tokens {got} differ from the "
+          f"unmigrated {want}")
+    nbytes = sum(x.nbytes for layer in payload["blocks"] for x in layer.values())
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    return {"blocks": payload["n_blocks"], "bytes": nbytes,
+            "pos": payload["pos"], "tokens_before_move": 8,
+            "extract_ms": round(e[0].elapsed_time(e[1]), 4),
+            "adopt_ms": round(e[1].elapsed_time(e[2]), 4),
+            "gather_device_ms": round(device_ms(lambda: b._gather_blocks(ids)), 5),
+            "gather_events_ms": round(cuda_ms(lambda: b._gather_blocks(ids)), 5),
+            "scatter_device_ms": round(device_ms(
+                lambda: b._scatter_blocks(payload["blocks"], ids, 0)), 5),
+            "scatter_events_ms": round(cuda_ms(
+                lambda: b._scatter_blocks(payload["blocks"], ids, 0)), 5),
+            "bound_ms": round(bound_ms, 6), "bound_by": "bytes"}
+
+
+def check_cluster(cfg, run) -> dict:
+    from repro_torch.serving import State
+
+    reg, orch, probe, reqs = run["reg"], run["orch"], run["probe"], run["reqs"]
+    done = reg.finished()
+    check(len(done) == len(reqs) == 24, f"cluster: {len(done)} of {len(reqs)} "
+          "requests finished")
+    for r in reqs:
+        check(r.state is State.DONE and len(r.output) == CLUSTER_NEW_TOKENS
+              and all(0 <= x < cfg.vocab_size for x in r.output),
+              f"cluster: request {r.rid} ended {r.state} with "
+              f"{len(r.output)} tokens")
+    counts = [1] + [n for _, n in orch.scale_history]
+    ups = sum(1 for a, b in zip(counts, counts[1:]) if b > a)
+    downs = sum(1 for a, b in zip(counts, counts[1:]) if b < a)
+    check(ups >= 1, f"cluster: no scale-up ({orch.scale_history})")
+    migs = orch.migrations.events
+    decode_moves = [e for e in migs if e.phase == "decode"]
+    check(decode_moves, f"cluster: no async decode-phase migration ({migs})")
+    stats = orch.directory.stats
+    shared = [r for r in done if r.prompt[:64] == run["prefix"]]
+    hits = sum(r.prefix_hit_tokens for r in shared)
+    check(stats.lookup_hit_tokens > 0 and hits > 0,
+          f"cluster: no directory-routed prefix hit (directory lookups "
+          f"{stats.lookups}, overlap tokens {stats.lookup_hit_tokens}, "
+          f"cached tokens on the shared prefix {hits})")
+    check(run["launches"]["flash_attention"] == 0
+          and run["launches"]["ssd_scan"] == 0,
+          f"cluster: a prefill kernel ran on the paged path ({run['launches']})")
+    check(any(n >= cfg.num_layers for n in probe.adopted_steps),
+          f"cluster: paged decode never launched on a replica after it "
+          f"adopted a row ({probe.adopted_steps[:8]})")
+    check_gapless(run["events"], done)
+    return {"requests": len(done), "steps": run["n_steps"],
+            "scale_history": orch.scale_history, "scale_ups": ups,
+            "scale_downs": downs, "migrations": len(migs),
+            "decode_phase_migrations": len(decode_moves),
+            "migration_failures": len(orch.migrations.failures),
+            "directory": dataclasses.asdict(stats),
+            "shared_prefix_hit_tokens": hits,
+            "launches": run["launches"],
+            "steps_with_adopted_rows": len(probe.adopted_steps)}
+
+
+def phase_cluster():
+    cfg, params = load_model(QWEN)
+    t0 = time.perf_counter()
+    trip = cluster_round_trip(cfg, params)
+    log(f"[cluster] round trip {json.dumps(trip)}")
+    run = run_cluster(cfg, params)
+    summary = check_cluster(cfg, run)
+    for row in run["probe"].report(run["orch"].migrations.events):
+        log(f"[cluster] migration {json.dumps(row)}")
+    by_rep: dict[int, list[float]] = {}
+    for n, wall in run["steps"]:
+        by_rep.setdefault(n, []).append(wall)
+    wall = sum(w for _, w in run["steps"]) + sum(w for w, _ in run["prof"])
+    tokens = sum(len(r.output) for r in run["reqs"])
+    summary.update(
+        step_wall_ms_by_replicas={n: {"steps": len(w),
+                                      "mean": round(1e3 * sum(w) / len(w), 3),
+                                      "max": round(1e3 * max(w), 3)}
+                                  for n, w in sorted(by_rep.items())},
+        profiled_steps=[{"wall_ms": round(1e3 * w, 3),
+                         "device_busy_ms": round(1e3 * b, 3)}
+                        for w, b in run["prof"]],
+        device_busy_share=(round(sum(b for _, b in run["prof"])
+                                 / sum(w for w, _ in run["prof"]), 4)
+                           if run["prof"] else "not measured"),
+        served_tokens=tokens, serve_wall_s=round(wall, 3),
+        served_tokens_per_s=round(tokens / wall, 2),
+        phase_s=round(time.perf_counter() - t0, 1))
+    log(f"[cluster] {json.dumps(summary)}")
+    log(f"[cluster] {gpu_line()}")
+    return summary
+
+
 def log_engine(prof, mamba) -> None:
     """Engine-level numbers, a report: the qwen2 paged decode step's device
     time by op and the mamba2 serving run's prefill seconds."""
@@ -849,13 +1232,16 @@ def main() -> int:
         stats = phase_qwen()
         stats["mamba2"] = phase_mamba()
         log_engine(stats["decode_profile"], stats["mamba2"])
+        stats["cluster"] = phase_cluster()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [{"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces,
-                "launches": stats[phase]["launches"][name], **rows[name]}
+                "launches": stats[phase]["launches"][name],
+                "cluster_launches": stats["cluster"]["launches"][name],
+                **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(gpu_line())

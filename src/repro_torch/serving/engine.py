@@ -35,8 +35,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.perf import BASELINE, PerfConfig
-from repro_torch.core.metrics import MetricsRegistry
-from repro_torch.core.tracing import Tracer
 from repro_torch.device import resolve_device
 from repro_torch.models import params as P
 from repro_torch.models.lm import make_model
@@ -111,6 +109,18 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
 
         # device state: preallocated, updated in place --------------------
+        # the dense layout's per-leaf batch axis, KV sequence axis and its
+        # length (None: per-row state such as SSM, with no block form) —
+        # row copies, resets, migration payloads and cross-backend payload
+        # conversion all pivot on them, on either backend
+        specs = self.model.cache_specs(capacity, max_len)
+        self._batch_axes = P.tree_map(lambda sp: sp.axes.index("batch"), specs)
+        self._seq_axes = P.tree_map(
+            lambda sp: sp.axes.index("act_kv") if "act_kv" in sp.axes else None,
+            specs)
+        self._seq_lens = P.tree_map(
+            lambda sp: sp.shape[sp.axes.index("act_kv")]
+            if "act_kv" in sp.axes else None, specs)
         if self.paged:
             self.block_size = block_size
             self.max_blk = -(-max_len // block_size)
@@ -119,8 +129,11 @@ class InferenceEngine:
                                else num_blocks)
             self.prefix = PrefixCache(self.num_blocks, block_size)
             self.prefix_enabled = enable_prefix_cache
-            self.caches = P.init(None, self.model.paged_cache_specs(
-                self.num_blocks, block_size), self.device)
+            paged_specs = self.model.paged_cache_specs(self.num_blocks,
+                                                       block_size)
+            self._pool_block_axes = P.tree_map(
+                lambda sp: sp.axes.index("kv_blocks"), paged_specs)
+            self.caches = P.init(None, paged_specs, self.device)
             self.block_tables = np.full((capacity, self.max_blk), -1, np.int32)
             self._row_blocks: dict[int, list[int]] = {}
             self._row_reserved: dict[int, int] = {}
@@ -129,10 +142,7 @@ class InferenceEngine:
         else:
             # the dense pool keeps its spec dtype (bf16) whatever
             # perf.kv_dtype says, as the reference does
-            specs = self.model.cache_specs(capacity, max_len)
             self.caches = P.init(None, specs, self.device)
-            # per-leaf batch axis: row copies and resets touch every leaf
-            self._batch_axes = P.tree_map(lambda sp: sp.axes.index("batch"), specs)
         self.tokens = np.zeros((capacity, 1), np.int64)
         self.pos = np.zeros((capacity,), np.int64)
 
@@ -146,6 +156,11 @@ class InferenceEngine:
         self._consumed: dict[int, int] = {}
         self._fresh: set[int] = set()
         self.rejected_long = 0
+        # in-progress async adoptions (ticket -> reservation state): rows
+        # whose KV is still streaming in over the transport, invisible to
+        # stepping and migration until commit_adopt activates them
+        self._pending_adopt: dict[int, dict] = {}
+        self._next_ticket = 0
 
         self.history: list[StepStats] = []
         self.finished: list[Request] = []
@@ -154,6 +169,13 @@ class InferenceEngine:
         self._risk_streak = 0       # consecutive SLO-guard-risky steps
         self.preemptions = 0        # rows displaced by the SLO guard (total)
 
+        # observability (core/tracing.py, core/metrics.py) — imported at
+        # run time: core/__init__ imports this module, so a module-level
+        # import here would be circular.  The orchestrator and the
+        # disaggregated server rebind every replica to shared ones via
+        # set_tracer/set_metrics.
+        from repro_torch.core.metrics import MetricsRegistry
+        from repro_torch.core.tracing import Tracer
         self._rlabel = str(getattr(self, "replica_label", getattr(self, "lb_id", 0)))
         self.tracer = tracer if tracer is not None else Tracer()
         self.metrics: Any = None
@@ -530,6 +552,16 @@ class InferenceEngine:
                                         index=0))
 
     # ------------------------------------------------------- observability
+    def set_tracer(self, tracer) -> None:
+        """Rebind to a shared (cluster-wide) tracer; also refreshes the
+        replica label, which the control plane sets via ``lb_id``."""
+        self.tracer = tracer
+        self._rlabel = str(getattr(self, "replica_label", getattr(self, "lb_id", 0)))
+
+    def set_metrics(self, registry) -> None:
+        """Rebind every instrument onto a shared (cluster-wide) registry."""
+        self._bind_instruments(registry)
+
     def _bind_instruments(self, registry) -> None:
         self.metrics = registry
         self._rlabel = str(getattr(self, "replica_label", getattr(self, "lb_id", 0)))
@@ -817,3 +849,409 @@ class InferenceEngine:
             self.step()
             steps += 1
         return self.finished
+
+    # --------------------------------------------------------- migration
+    def _find_row(self, rid: int) -> tuple[int, Request, str]:
+        """Locate a live request by rid: (row, request, phase) where phase
+        is "decode" (prefill complete) or "prefill" (mid-chunked-prefill,
+        extractable at its current chunk boundary)."""
+        for row, q in self.row_req.items():
+            if q.rid == rid:
+                return row, q, "decode"
+        for row, q in self._prefilling.items():
+            if q.rid == rid:
+                return row, q, "prefill"
+        raise KeyError(f"rid {rid} not active here")
+
+    def migratable_requests(self) -> list[Request]:
+        """Live requests a migration payload can be built for: every decode
+        row, plus mid-prefill rows that have consumed at least one chunk
+        (a consumed==0 dense row has not run its cache reset yet — there is
+        nothing coherent to extract, only a request to requeue)."""
+        out = list(self.row_req.values())
+        out += [q for row, q in self._prefilling.items()
+                if self._consumed.get(row, 0) > 0]
+        return out
+
+    def migration_sequence(self, rid: int) -> list[int]:
+        """Tokens whose KV is materialised for this request — what a
+        destination's prefix cache can be probed with before transfer."""
+        row, req, _ = self._find_row(rid)
+        n = int(self.pos[row])
+        return (list(req.prompt) + list(req.output))[:n]
+
+    def can_adopt(self, req: Request, n_valid: int,
+                  n_keep_blocks: int = 0) -> bool:
+        """Cheap adopt admissibility probe — no row taken, no cache data
+        touched, no refcounts moved.  ``n_keep_blocks``: full blocks this
+        engine's prefix cache already holds for the sequence (it would
+        reuse, not re-allocate, them)."""
+        if self.pool.used >= self.capacity:
+            return False
+        if not self.paged:
+            return True
+        n_total = -(-n_valid // self.block_size)
+        future = self._blocks_horizon(req, n_total, False)
+        return (n_total - n_keep_blocks) + future <= self._paged_available()
+
+    def kv_per_block_bytes(self) -> int:
+        """Bytes one KV block holds across every layer pool (paged only)."""
+        assert self.paged
+        return sum(t.nbytes // t.shape[axes[n]]
+                   for pool, axes in zip(self.caches, self._pool_block_axes)
+                   for n, t in pool.items())
+
+    def _gather_blocks(self, block_ids: list[int]) -> list[dict]:
+        """Per-layer (n_blocks, block_size, ...) slabs for the given pool
+        blocks — the data plane of a paged migration payload.  A copy
+        (``index_select``), never a view: the source donates these blocks
+        to its prefix index, and a request admitted next may overwrite them
+        while the payload is still in flight."""
+        ids = self._t(np.asarray(block_ids, np.int64))
+        return [{n: t.index_select(axes[n], ids) for n, t in pool.items()}
+                for pool, axes in zip(self.caches, self._pool_block_axes)]
+
+    @torch.no_grad()
+    def _scatter_blocks(self, data: list[dict], block_ids: list[int],
+                        lo: int) -> None:
+        """Write payload slabs (skipping the first ``lo`` blocks — the
+        destination already holds them) into the given fresh pool blocks,
+        cast to the pool's dtype."""
+        if not block_ids:
+            return
+        ids = self._t(np.asarray(block_ids, np.int64))
+        for pool, d, axes in zip(self.caches, data, self._pool_block_axes):
+            for n, t in pool.items():
+                ax = axes[n]
+                sl = d[n].narrow(ax, lo, d[n].shape[ax] - lo)
+                t.index_copy_(ax, ids, sl.to(t.dtype))
+
+    def extract_row(self, rid: int, now: float | None = None):
+        """Remove a live request, returning its migration payload
+        (Llumnix-style pause-and-copy handoff).  Works for decode rows and
+        for mid-chunked-prefill rows at their current chunk boundary — the
+        payload carries the prefill progress (``phase``/``pos``) so the
+        destination resumes exactly where the source stopped.
+
+        Dense payload: the row's caches, every leaf copied at batch size 1.
+        Paged payload: per-layer (n_blocks, block_size, ...) slabs for the
+        mapped blocks plus the token sequence they hold, so the destination
+        can re-allocate through its own PrefixCache and skip blocks it
+        already caches.  The source row is freed; its blocks are donated to
+        the source's prefix index first, so a rollback re-adopt (or the
+        next request with this prefix) is mostly cache hits."""
+        row, req, phase = self._find_row(rid)
+        if phase == "prefill" and self._consumed.get(row, 0) <= 0:
+            raise ValueError(f"rid {rid} has not completed a chunk yet — "
+                             "requeue it instead of migrating")
+        n_valid = int(self.pos[row])
+        payload: dict[str, Any] = {"pos": n_valid, "phase": phase}
+        if phase == "decode":
+            payload["last_token"] = int(self.tokens[row, 0])
+        if self.paged:
+            blocks = self._row_blocks[row][: -(-n_valid // self.block_size)]
+            payload["kind"] = "paged"
+            payload["seq"] = self.migration_sequence(rid)
+            payload["blocks"] = self._gather_blocks(blocks)
+            payload["n_blocks"] = len(blocks)
+        else:
+            idx = self._t(np.asarray([row], np.int64))
+            payload["kind"] = "dense"
+            payload["caches"] = [
+                {n: t.index_select(axes[n], idx) for n, t in pool.items()}
+                for pool, axes in zip(self.caches, self._batch_axes)]
+        if phase == "decode":
+            del self.row_req[row]
+        else:
+            del self._prefilling[row]
+            del self._consumed[row]
+            self._fresh.discard(row)
+        if self.paged:
+            self._release_row(row, req, insert=True)
+        req.state = State.MIGRATING
+        req.row = None
+        req.migrations += 1
+        self.pool.free(row)
+        now = time.perf_counter() if now is None else now
+        # close this replica's slice of the phase span and ship the span
+        # context with the KV: the destination continues the same trace
+        self.tracer.end(rid, "decode" if phase == "decode" else "prefill",
+                        now, status="migrate-out")
+        payload["trace"] = self.tracer.export_context(rid)
+        self.emit_event(PreemptEvent(t=now, rid=rid, reason="migrate"))
+        return req, payload
+
+    def begin_adopt(self, req: Request, payload: dict,
+                    now: float | None = None) -> int | None:
+        """Reserve everything an incoming migration needs *before* any KV
+        lands: a batch row and, on the paged backend, the full block plan —
+        destination-cached full blocks are reused (their refcounts pin them
+        against eviction for the transfer's whole flight), fresh blocks are
+        allocated through the prefix cache with the same reservation-based
+        admission as ``_admit_paged``.
+
+        Returns an opaque ticket for ``feed_adopt``/``commit_adopt``/
+        ``abort_adopt``, or None when no row or no admissible block plan is
+        available (nothing reserved — the caller rolls back at the source).
+        The pending row is invisible to stepping and migration until commit
+        activates it."""
+        kind = payload.get("kind", "dense")
+        want = "paged" if self.paged else "dense"
+        if kind != want:
+            raise ValueError(f"cannot adopt a {kind!r} payload on a {want!r} "
+                             "engine — convert the payload first "
+                             "(convert_payload) or migrate same-backend")
+        row = self.pool.allocate(req.rid)
+        if row is None:
+            return None
+        st: dict[str, Any] = {"req": req, "row": row, "payload": payload,
+                              "n_keep": 0, "blocks": None, "chunks": {},
+                              "expected": 1}
+        if self.paged:
+            seq, n_valid = payload["seq"], payload["pos"]
+            n_total = -(-n_valid // self.block_size)
+            future = self._blocks_horizon(req, n_total, False)
+            if self.prefix_enabled:
+                plan = self.prefix.adopt_blocks(seq, n_valid, future,
+                                                self._reserved_total)
+            else:
+                plan = None
+                if n_total + future <= self._paged_available():
+                    got = self.prefix.allocate(n_total)
+                    plan = (got, 0) if got is not None else None
+            if plan is None:
+                self.pool.free(row)
+                return None
+            blocks, n_keep = plan
+            self._row_blocks[row] = blocks
+            self.block_tables[row, :] = -1
+            self.block_tables[row, : len(blocks)] = blocks
+            self._row_reserved[row] = future
+            self._reserved_total += future
+            st["blocks"], st["n_keep"] = blocks, n_keep
+            # one transfer chunk per block the destination doesn't hold
+            st["expected"] = payload["n_blocks"] - n_keep
+        self.pos[row] = 0          # no live tokens until commit
+        self._next_ticket += 1
+        self._pending_adopt[self._next_ticket] = st
+        return self._next_ticket
+
+    def feed_adopt(self, ticket: int, index: int, data) -> None:
+        """Land one transfer chunk of an in-progress adoption.  Paged:
+        ``data`` is the per-layer single-block slab for payload block
+        ``n_keep + index``, scattered straight into the reserved pool block
+        (chunks may arrive in any order; duplicates are ignored).  Dense:
+        the full-row caches, buffered — the pool write happens at commit so
+        an in-flight transfer never races the whole-batch decode writes."""
+        st = self._pending_adopt[ticket]
+        if index in st["chunks"]:
+            return
+        if self.paged:
+            block = st["blocks"][st["n_keep"] + index]
+            self._scatter_blocks(data, [block], 0)
+            st["chunks"][index] = True
+        else:
+            st["chunks"][index] = data
+
+    def commit_adopt(self, ticket: int, now: float | None = None) -> Request:
+        """Activate a fully-transferred adoption: donate the request's full
+        blocks into the radix index (the partial tail stays private so the
+        row's own appends never trigger a copy-on-write), restore
+        position/sampling state, continue the request's trace here, and
+        make the row live for the next step."""
+        now = time.perf_counter() if now is None else now
+        st = self._pending_adopt.pop(ticket)
+        req, row, payload = st["req"], st["row"], st["payload"]
+        assert len(st["chunks"]) >= st["expected"], \
+            "commit_adopt before every chunk landed"
+        if self.paged:
+            seq, n_valid = payload["seq"], payload["pos"]
+            if self.prefix_enabled:
+                self.prefix.insert(seq, st["blocks"],
+                                   (n_valid // self.block_size)
+                                   * self.block_size)
+            req.extras["adopt_hit_blocks"] = st["n_keep"]
+        else:
+            self._insert_rows(st["chunks"][0], [row])
+        self.pos[row] = payload["pos"]
+        self._set_row_sampling(row, req)
+        req.row = row
+        # continue the request's trace here: same trace id, span ids offset
+        # past the source's (no-op import when the cluster shares a tracer)
+        self.tracer.import_context(payload.get("trace"))
+        if payload["phase"] == "decode":
+            self.tokens[row, 0] = payload["last_token"]
+            self.row_req[row] = req
+            req.state = State.DECODE
+            self.tracer.begin(req.rid, "decode", now, replica=self._rlabel,
+                              migrated_in=True, resume_pos=payload["pos"])
+        else:
+            # mid-prefill handoff: resume the chunk pipeline at the boundary
+            self._prefilling[row] = req
+            self._consumed[row] = payload["pos"]
+            req.state = State.PREFILL
+            self.tracer.begin(req.rid, "prefill", now, replica=self._rlabel,
+                              migrated_in=True, resume_pos=payload["pos"])
+        return req
+
+    def abort_adopt(self, ticket: int) -> None:
+        """Drop an in-progress adoption and return every reservation."""
+        st = self._pending_adopt.pop(ticket)
+        if self.paged:
+            self._release_row(st["row"], st["req"], insert=False)
+        self.pool.free(st["row"])
+
+    def adopt(self, req: Request, payload: dict, now: float | None = None) -> bool:
+        """Install a migrated request synchronously (same cfg, max_len and
+        block_size; use ``convert_payload`` across KV backends).  Returns
+        False — leaving this engine untouched — when no row or, on the
+        paged backend, no admissible block plan is available.
+
+        Expressed as begin/feed-all/commit so the synchronous path and the
+        transport's block-granular async path share one implementation."""
+        now = time.perf_counter() if now is None else now
+        ticket = self.begin_adopt(req, payload, now)
+        if ticket is None:
+            return False
+        st = self._pending_adopt[ticket]
+        if self.paged:
+            # one-shot scatter of the whole slab, skipping reused blocks
+            self._scatter_blocks(payload["blocks"],
+                                 st["blocks"][st["n_keep"]:], st["n_keep"])
+            st["chunks"] = {i: True for i in range(st["expected"])}
+        else:
+            st["chunks"][0] = payload["caches"]
+        self.commit_adopt(ticket, now)
+        return True
+
+    # --------------------------------------- cross-backend payload conversion
+    def _all_seq_axes(self) -> bool:
+        return all(ax is not None for ax in P.tree_leaves(self._seq_axes))
+
+    def can_convert(self, other) -> bool:
+        """Whether a migration payload from ``other`` (the opposite KV
+        backend) is convertible to this engine's layout.  Any cache leaf
+        without a KV sequence axis (SSM state, conv tails: no block
+        representation) makes it unservable."""
+        return (self.model.supports_paged()
+                and other.model.supports_paged()
+                and self.max_len == other.max_len
+                and self._all_seq_axes())
+
+    def convert_payload(self, req: Request, payload: dict) -> dict | None:
+        """Rebuild a migration payload from the other KV backend into this
+        engine's layout, leaf by leaf (the block axis sits where the batch
+        axis was, the slot axis where the sequence axis was).  Paged ->
+        dense flattens block slabs back into one padded row; dense -> paged
+        slices the row into ``block_size`` slots.  Positions past ``pos``
+        are zero-padding the decode mask never reads.  Returns None for
+        shapes ``can_convert`` rejects."""
+        kind = payload.get("kind", "dense")
+        want = "paged" if self.paged else "dense"
+        if kind == want:
+            return payload
+        if not (self._all_seq_axes() and self.model.supports_paged()):
+            return None
+        pos = payload["pos"]
+        out = {k: v for k, v in payload.items()
+               if k not in ("kind", "seq", "blocks", "n_blocks", "caches")}
+        out["kind"] = want
+        if want == "dense":
+            caches = []
+            for layer, bax, lens in zip(payload["blocks"], self._batch_axes,
+                                        self._seq_lens):
+                entry = {}
+                for n, d in layer.items():
+                    ax, L = bax[n], lens[n]
+                    x = d.flatten(ax, ax + 1)       # (.., nb * slot, ..)
+                    if x.shape[ax] < L:
+                        pad = list(x.shape)
+                        pad[ax] = L - x.shape[ax]
+                        x = torch.cat([x, x.new_zeros(pad)], dim=ax)
+                    else:
+                        x = x.narrow(ax, 0, L)
+                    entry[n] = x.unsqueeze(ax)
+                caches.append(entry)
+            out["caches"] = caches
+        else:
+            bs = self.block_size
+            nb = -(-pos // bs)
+            blocks = []
+            for layer, bax, sax in zip(payload["caches"], self._batch_axes,
+                                       self._seq_axes):
+                entry = {}
+                for n, d in layer.items():
+                    ax, sx = bax[n], sax[n]
+                    x = d.squeeze(ax)
+                    s = sx - 1 if ax < sx else sx
+                    if x.shape[s] < nb * bs:
+                        pad = list(x.shape)
+                        pad[s] = nb * bs - x.shape[s]
+                        x = torch.cat([x, x.new_zeros(pad)], dim=s)
+                    else:
+                        x = x.narrow(s, 0, nb * bs)
+                    entry[n] = x.unflatten(s, (nb, bs))
+                blocks.append(entry)
+            out["seq"] = (list(req.prompt) + list(req.output))[:pos]
+            out["n_blocks"] = nb
+            out["blocks"] = blocks
+        return out
+
+    # ------------------------------------------------- cluster cache directory
+    def attach_cache_directory(self, directory, replica_id: int | None = None) -> None:
+        """Start publishing this replica's prefix-index deltas (insert,
+        evict) into a cluster cache directory, and push the current index
+        so the directory is warm from the first lookup.  A no-op on dense
+        or prefix-cache-disabled engines — they have nothing to advertise."""
+        if not (self.paged and self.prefix_enabled):
+            return
+        rid = replica_id if replica_id is not None \
+            else getattr(self, "lb_id", id(self))
+        self.prefix.attach_sink(directory, rid)
+        directory.reconcile(rid, self.prefix.reachable_chains())
+
+    def detach_cache_directory(self, directory=None) -> None:
+        """Stop publishing; with ``directory`` given, also invalidate every
+        entry this replica claimed (scale-down: its pool is going away)."""
+        if not self.paged:
+            return
+        if directory is not None and self.prefix.replica_id is not None:
+            directory.drop_replica(self.prefix.replica_id)
+        self.prefix.detach_sink()
+
+    def reconcile_cache_directory(self, directory) -> tuple[int, int]:
+        """Periodic anti-entropy: replace the directory's view of this
+        replica with the chains its radix tree can actually serve."""
+        if not (self.paged and self.prefix_enabled):
+            return (0, 0)
+        rid = self.prefix.replica_id
+        if rid is None:
+            rid = getattr(self, "lb_id", id(self))
+        return directory.reconcile(rid, self.prefix.reachable_chains())
+
+    def kv_utilization(self) -> float:
+        """KV memory in use as a fraction of the backend's budget: live
+        blocks over the pool on the paged backend, occupied rows over
+        capacity on dense."""
+        return self.prefix.utilization() if self.paged else self.pool.utilization()
+
+    def kv_bytes(self, rid: int) -> int:
+        """Migration payload size, scaled by the request's sequence length:
+        leaves with a KV sequence axis are charged min(pos, L) of their L
+        slots; per-row state without one (SSM state, conv tails) is charged
+        in full.  On the paged backend a request is charged its mapped
+        blocks."""
+        row, _, _ = self._find_row(rid)
+        if self.paged:
+            return self.kv_per_block_bytes() * len(self._row_blocks[row])
+        n = int(self.pos[row])
+        total = 0
+        for pool, bax, lens in zip(self.caches, self._batch_axes,
+                                   self._seq_lens):
+            for name, t in pool.items():
+                per_row = t.nbytes // t.shape[bax[name]]
+                L = lens[name]
+                if L is not None:
+                    per_row = per_row * min(n, L) // L
+                total += per_row
+        return total
