@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Five phases, each fatal on failure:
+Six phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -14,7 +14,8 @@ Five phases, each fatal on failure:
 2. kernels hold each kernel against its plain PyTorch version in bf16 and
            f32, the attention kernels at qwen2-0.5b shapes (14 heads over 2
            kv heads, head_dim 64; flash also over the tests' cases, tile
-           edges and a strided q) and the SSD scan at mamba2-780m's (48
+           edges and a strided q) and at qwen3-moe-30b-a3b's (32 heads over
+           4, head_dim 128), and the SSD scan at mamba2-780m's (48
            heads, P 64, N 128, one group; also at the strongest decay its
            initialisation allows), then time kernel, plain version and
            bound with CUDA events, and each kernel's device time under
@@ -43,7 +44,16 @@ Five phases, each fatal on failure:
            each migration's blocks, bytes and extract, transfer and adopt
            ms, the payload gather and scatter beside their bound, step wall
            ms by replica count, a profiled window's device busy share and
-           served tokens/s.
+           served tokens/s;
+6. moe     qwen3-moe-30b-a3b whole (48 layers, 128 experts top-8, 61 GB of
+           bf16 weights drawn on the card after every earlier model is
+           freed), served like qwen2 on the paged then the dense backend:
+           paged decode must launch 48 times a decode step and flash 48
+           times a prefill group; its decode step profiled by part
+           (expert products, router, paged decode) against the weight-read
+           bound; its kernel path held to the plain path at 4 layers and
+           to the f32 plain path at the deepest depth that fits
+           (``compare_paths_moe``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -52,6 +62,7 @@ no result, when there is no GPU or any check fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -82,6 +93,10 @@ MAMBA_BF16_DEPTH = 4          # layers of the bf16 kernel-vs-plain bar
 MAMBA_BF16_ERR_RATIO = 1.5    # full depth: kernel vs plain, distance to f32
 # flash timed also at a full batch of the engine's capacity at max_len
 FLASH_LONG = (8, 1024)        # B, Sq = Skv
+QWEN_HEADS = (14, 2, 64)      # H, KV, head_dim of qwen2-0.5b
+MOE_HEADS = (32, 4, 128)      # of qwen3-moe-30b-a3b
+PAGED_BATCH = (8, 16, 64)     # B, block size, blocks per table row
+PAGED_CTX = [0, 1, 17, 300, 1024, 300, 17, 1]
 KERNELS = (      # name, TPU kernel it replaces, serving phase it runs in
     ("paged_attention", "src/repro/kernels/paged_attention/kernel.py:67", "paged"),
     ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:80", "dense"),
@@ -137,12 +152,25 @@ def device_profile(fn, iters: int = 20) -> tuple[float, list[str]]:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+        if rows:
+            break
+        # a trace that holds no device activity at all is the tracer's
+        # failure, not the kernel's: trace again
+        log(f"[profile] trace {attempt + 1} recorded no device activity "
+            f"({len(prof.key_averages())} entries)")
     return sum(dev_us(e) for e in rows) / iters / 1e3, sorted(e.key for e in rows)
+
+
+def on_device(e) -> bool:
+    """Whether a profiler key-average row is the device's own (a kernel or a
+    copy), not a host op that launched one."""
+    return str(e.device_type).endswith("CUDA")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -366,40 +394,76 @@ def time_flash(B, S, H, KV, d, gen):
                 device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa))
 
 
-def phase_kernels():
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+def check_paged(H, KV, d, gen, worst):
+    """Paged decode against its plain version in bf16 and f32: B=8, bs=16,
+    max_blk=64, ctx 0 / 1 / 17 / 300 / 1024, -1 tails in every table."""
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    H, KV, d = 14, 2, 64
-    worst = {"paged_attention": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}
-
-    # paged decode: B=8, bs=16, max_blk=64, ctx 0 / 1 / 17 / 300 / 1024,
-    # -1 tails in every table
-    B, bs, max_blk = 8, 16, 64
-    ctx = [0, 1, 17, 300, 1024, 300, 17, 1]
+    B, bs, max_blk = PAGED_BATCH
     for dtype in (torch.bfloat16, torch.float32):
-        args = paged_inputs(B, H, KV, d, bs, max_blk, ctx, dtype, gen)
+        args = paged_inputs(B, H, KV, d, bs, max_blk, PAGED_CTX, dtype, gen)
         out = paged_ops.paged_decode_attention(*args)
         torch.cuda.synchronize()
         ref = paged_attention_ref(*args)
         err, ok = max_err(out, ref, TOL[("paged", dtype)])
         worst["paged_attention"] = max(worst["paged_attention"], err)
         log(f"[kernels] paged_attention {str(dtype)[6:]} B={B} H={H} KV={KV} "
-            f"d={d} bs={bs} ctx={ctx}: max_abs_err={err:.3e}")
-        check(ok, f"paged_attention {dtype} disagrees with its plain version")
+            f"d={d} bs={bs} ctx={PAGED_CTX}: max_abs_err={err:.3e}")
+        check(ok, f"paged_attention {dtype} H={H} KV={KV} d={d} disagrees with "
+                  "its plain version")
         check(bool((out[0] == 0).all()), "paged_attention: ctx=0 row is not 0")
 
+
+def time_paged(H, KV, d, gen, by_uniform_ctx: bool):
+    """Kernel, plain version and bound at the decode step's shape, bf16;
+    fails unless a call is one kernel.  ``by_uniform_ctx``: device time also
+    with every row at one context length, what the live splits cost, from
+    one split (ctx <= 64) to sixteen."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    dtype = torch.bfloat16
+    B, bs, max_blk = PAGED_BATCH
+    args = paged_inputs(B, H, KV, d, bs, max_blk, PAGED_CTX, dtype, gen)
+    def paged():
+        return paged_ops.paged_decode_attention(*args)
+    ms = cuda_ms(paged)
+    plain = cuda_ms(lambda: paged_attention_ref(*args), iters=20)
+    b_ms, b_by = bound(*paged_work(B, H, KV, d, max_blk, PAGED_CTX, 2), dtype)
+    dev, names = device_profile(paged)
+    check(len(names) == 1, f"paged_attention: {len(names)} kernels per call: {names}")
+    row = dict(shape=f"B={B} H={H} KV={KV} d={d} bs={bs} max_blk={max_blk} "
+                     f"ctx={PAGED_CTX}", ms=ms, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, device_ms=dev, device_kernels=names)
+    if by_uniform_ctx:
+        by_ctx = {}
+        for c in (1, 64, 300, 1024):
+            a = paged_inputs(B, H, KV, d, bs, max_blk, [c] * B, dtype, gen)
+            by_ctx[c] = device_ms(lambda: paged_ops.paged_decode_attention(*a))
+        row["device_ms_by_uniform_ctx"] = by_ctx
+    return row
+
+
+def phase_kernels():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    worst = {"paged_attention": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}
+    for H, KV, d in (QWEN_HEADS, MOE_HEADS):
+        check_paged(H, KV, d, gen, worst)
+
     # flash: B=4, Sq=Skv in {32, 128, 200}, Skv > Sq, window 64 at qwen2's
-    # heads, then the tests' cases (tests/torch_kernel_cases.py: the
-    # reference's sweep and the tiles' edges) and a strided q
+    # heads, Sq=Skv in {128, 200} at qwen3-moe's, then the tests' cases
+    # (tests/torch_kernel_cases.py: the reference's sweep and the tiles'
+    # edges) and a strided q
     from torch_kernel_cases import (FLASH_CASES, FLASH_STRIDED_Q, flash_inputs,
                                     strided_view)
     Bf = 4
-    cases = [(Bf, Sq, Skv, H, KV, d, w, False) for Sq, Skv, w in
+    cases = [(Bf, Sq, Skv, *QWEN_HEADS, w, False) for Sq, Skv, w in
              [(32, 32, 0), (128, 128, 0), (200, 200, 0), (100, 260, 0), (200, 200, 64)]]
+    cases += [(Bf, S, S, *MOE_HEADS, 0, False) for S in (128, 200)]
     cases += [(*c, False) for c in FLASH_CASES] + [(*FLASH_STRIDED_Q, True)]
     for dtype in (torch.bfloat16, torch.float32):
         for B_, Sq, Skv, H_, KV_, d_, window, strided in cases:
@@ -418,33 +482,15 @@ def phase_kernels():
             log(f"[kernels] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
             check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
 
-    # timings at the serving path's shapes, bf16
-    dtype = torch.bfloat16
-    rows = {}
-    args = paged_inputs(B, H, KV, d, bs, max_blk, ctx, dtype, gen)
-    def paged():
-        return paged_ops.paged_decode_attention(*args)
-    ms = cuda_ms(paged)
-    plain = cuda_ms(lambda: paged_attention_ref(*args), iters=20)
-    b_ms, b_by = bound(*paged_work(B, H, KV, d, max_blk, ctx, 2), dtype)
-    dev, names = device_profile(paged)
-    check(len(names) == 1, f"paged_attention: {len(names)} kernels per call: {names}")
-    # device time with every row at one context length: what the live
-    # splits cost, from one split (ctx <= 64) to sixteen
-    by_ctx = {}
-    for c in (1, 64, 300, 1024):
-        a = paged_inputs(B, H, KV, d, bs, max_blk, [c] * B, dtype, gen)
-        by_ctx[c] = device_ms(lambda: paged_ops.paged_decode_attention(*a))
-    rows["paged_attention"] = dict(shape=f"B={B} H={H} KV={KV} d={d} bs={bs} "
-                                         f"max_blk={max_blk} ctx={ctx}",
-                                   ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=None,
-                                   device_ms=dev, device_kernels=names,
-                                   device_ms_by_uniform_ctx=by_ctx)
-    rows["flash_attention"] = time_flash(Bf, 128, H, KV, d, gen)
+    # timings at the serving paths' shapes, bf16
+    rows = {"paged_attention": time_paged(*QWEN_HEADS, gen, by_uniform_ctx=True)}
+    rows["paged_attention"]["qwen3_moe"] = time_paged(*MOE_HEADS, gen,
+                                                      by_uniform_ctx=False)
+    rows["flash_attention"] = time_flash(Bf, 128, *QWEN_HEADS, gen)
     rows["flash_attention"].update(
         {f"long_{key}": val for key, val in
-         time_flash(*FLASH_LONG, H, KV, d, gen).items()})
+         time_flash(*FLASH_LONG, *QWEN_HEADS, gen).items()})
+    rows["flash_attention"]["qwen3_moe"] = time_flash(Bf, 128, *MOE_HEADS, gen)
     rows["ssd_scan"] = check_ssd(worst)
     for name, r in rows.items():
         r["max_abs_err"] = worst[name]
@@ -774,21 +820,29 @@ def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
                            sampling=SamplingParams(max_new_tokens=4 + 2 * steps)))
     while eng._prefilling or eng.scheduler.depth():
         eng.step()
+    paged = kernel_ops()["paged_attention"]
     torch.cuda.synchronize()
+    n0 = paged.launches
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    paged_per_step = (paged.launches - n0) / steps
+    moe = bool(cfg.num_experts)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
 
     events = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    dev_ms = sum(dev_us(e) for e in events) / steps / 1e3
+    # the device's own entries (kernels, copies): an op's self device time
+    # repeats its kernels' time, so summing every entry counts it twice
+    dev_ms = sum(dev_us(e) for e in events if on_device(e)) / steps / 1e3
+    # by host op: the device time of the kernels each op launched
     top = [(e.key, round(dev_us(e) / steps / 1e3, 4), e.count // steps)
-           for e in events[:10] if dev_us(e) > 0]
+           for e in events if dev_us(e) > 0 and not on_device(e)][:10]
     # the port's own kernels, wherever they rank
     ours = [(re.search(r"\w+_kernel", e.key).group(0), round(dev_us(e) / steps / 1e3, 4),
              e.count // steps)
@@ -798,9 +852,54 @@ def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
               "decode_step_device_ms": round(dev_ms, 3) if dev_ms else "not measured",
               "device_busy_share": round(dev_ms / wall_ms, 3) if dev_ms else "not measured",
               "port_kernels_ms_per_step_and_calls": ours,
+              "paged_launches_per_step": paged_per_step,
               "top_ops_ms_per_step_and_calls": top}
+    if moe and dev_ms:
+        report["moe"] = moe_step_report(cfg, prof, steps, dev_ms, wall_ms)
     log(f"[profile] {json.dumps(report)}")
     return report
+
+
+def weight_read_bound_ms(cfg) -> tuple[float, int]:
+    """The least time a decode step can take when it reads every weight
+    once (all but the embedding table, of which it gathers a few rows), at
+    3.35 TB/s: (ms, bytes)."""
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import make_model
+
+    specs = make_model(cfg).param_specs()
+    nbytes = P.count_bytes(specs) - P.count_bytes(specs["embed"]["embedding"])
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def moe_step_report(cfg, prof, steps, dev_ms, wall_ms) -> dict:
+    """The MoE decode step by part, ms per step on the device: the expert
+    products (every ``bmm`` of a paged decode step is one), the router (the
+    ops on its (D, E) weight: its f32 cast and the f32 product), paged
+    decode, and the rest; then the step against its weight-read bound."""
+    def ms(events):
+        # leaf ops and kernels only, by the device time of all they launch
+        return round(sum(getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0) for e in events)
+                     / steps / 1e3, 4)
+
+    by_shape = list(prof.key_averages(group_by_input_shape=True))
+    router_shape = [cfg.d_model, cfg.num_experts]
+    expert = [e for e in by_shape if e.key == "aten::bmm"]
+    router = [e for e in by_shape if e.key in ("aten::mm", "aten::copy_")
+              and router_shape in (e.input_shapes or [])]
+    paged = [e for e in by_shape if "paged_decode" in e.key]
+    bound_ms, nbytes = weight_read_bound_ms(cfg)
+    parts = {"expert_bmm": ms(expert), "router": ms(router), "paged_decode": ms(paged)}
+    parts["rest"] = round(dev_ms - sum(parts.values()), 4)
+    busy = dev_ms / wall_ms
+    return {"device_ms_by_part": parts,
+            "device_share_by_part": {k: round(v / dev_ms, 4) for k, v in parts.items()},
+            "expert_bmm_calls_per_step": sum(e.count for e in expert) // steps,
+            "weight_bytes_read_once": nbytes, "step_bound_ms": round(bound_ms, 3),
+            "device_over_bound": round(dev_ms / bound_ms, 3),
+            "wall_over_bound": round(wall_ms / bound_ms, 3),
+            "step_set_by": "the card" if busy >= 0.9 else "the host"}
 
 
 def load_model(arch: str):
@@ -1205,6 +1304,227 @@ def phase_cluster():
     return summary
 
 
+# -------------------------------------------------------------------- moe
+MOE = "qwen3-moe-30b-a3b"
+# the reference's MoE bar (tests/test_kernels.py: bf16 noise can flip router
+# top-k), and the f32 bar of every model
+MOE_LOGIT_REL_TOL = {torch.bfloat16: 6e-2, torch.float32: 1e-3}
+MOE_SHORT_DEPTH = 4           # layers of the kernel-vs-plain bars
+MOE_ERR_RATIO = 1.5           # deepest f32 depth: kernel vs plain, distance to f32
+MOE_F32_MARGIN = 3e9          # device bytes left free beside the f32 copy
+
+
+def check_moe_serve(cfg, stats, backend: str):
+    counts, steps, groups = stats["launches"], stats["decode_steps"], stats["bucket_groups"]
+    check(stats["requests"] == 10, f"{cfg.name}: {stats['requests']} requests served")
+    if backend == "paged":
+        check(counts["paged_attention"] == cfg.num_layers * steps,
+              f"{cfg.name} paged: {counts['paged_attention']} paged-decode launches "
+              f"for {steps} decode steps x {cfg.num_layers} layers")
+        check(counts["flash_attention"] == 0, f"{cfg.name} paged: flash ran")
+        check(stats["prefix_hit_tokens"] > 0, f"{cfg.name} paged: no prefix-cache hits")
+    else:
+        check(groups and counts["flash_attention"] == cfg.num_layers * len(groups),
+              f"{cfg.name} dense: {counts['flash_attention']} flash launches for "
+              f"{len(groups)} bucketed prefill groups x {cfg.num_layers} layers")
+        check(counts["paged_attention"] == 0, f"{cfg.name} dense: paged decode ran")
+    check(counts["ssd_scan"] == 0, f"{cfg.name} {backend}: the SSD scan ran")
+
+
+def moe_path_logits(cfg, params, use_kernels: bool, toks, true_len, feed,
+                    forced=None):
+    """Logits (f32) of every call, in the dtype of ``params``: a prefill of
+    right-padded prompts (flash on the kernel path), a paged chunked prefill
+    of the same prompts, then paged decode steps fed the tokens ``feed``
+    whatever the path, so that calls compare across paths and dtypes.  Also
+    the top-K expert ids each MoE layer chose for every position, per call
+    and layer, read through ``layers.moe_route``.  ``forced``: such ids of
+    another run, which every MoE layer then takes in place of its own top-K,
+    weighted by its own router probabilities renormalised over them."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import LM
+
+    m = LM(cfg, with_overrides(BASELINE, use_kernels=use_kernels))
+    B, S = toks.shape
+    bs = 16
+    max_blk = -(-(S + len(feed)) // bs)
+    table = torch.arange(B * max_blk, dtype=torch.int32, device=DEV).view(B, max_blk)
+    pools = P.init(None, m.paged_cache_specs(B * max_blk, bs), DEV)
+    real = L.moe_route
+    replay = None if forced is None else iter([i for call in forced for i in call])
+    routes: list[list] = []
+
+    def route(p, x, c):
+        w, idx, probs = real(p, x, c)
+        if replay is not None:
+            idx = next(replay)
+            w = probs.gather(-1, idx)
+            w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+        routes[-1].append(idx)
+        return w, idx, probs
+
+    out = []
+    L.moe_route = route
+    try:
+        routes.append([])
+        out.append(m.prefill(params, {"tokens": toks}, S, true_len=true_len)[0])
+        routes.append([])
+        out.append(m.prefill_chunk_paged(params, toks, torch.zeros_like(true_len),
+                                         true_len, pools, table)[0])
+        pos = true_len.clone()
+        for f in feed:
+            routes.append([])
+            out.append(m.decode_step_paged(params, f, pos, pools, table)[0])
+            pos = pos + 1
+    finally:
+        L.moe_route = real
+    out = [o.float() for o in out]
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
+    return out, routes
+
+
+def sets_differ(ra, rb) -> tuple[int, int]:
+    """(position, layer) pairs whose top-K expert sets differ between two
+    runs' routes, and all pairs."""
+    pairs = [(a.sort(-1).values, b.sort(-1).values)
+             for ca, cb in zip(ra, rb) for a, b in zip(ca, cb)]
+    return (sum(int((a != b).any(-1).sum()) for a, b in pairs),
+            sum(a.shape[0] * a.shape[1] for a, _ in pairs))
+
+
+def compare_paths_moe(cfg, params) -> dict:
+    """qwen3-moe, the kernel path against the plain path on the same weights
+    and inputs (4 rows of 128 tokens, 100 / 77 / 12 valid on three; 4 decode
+    steps): max |diff| / max |logits| per call.
+
+    At ``MOE_SHORT_DEPTH`` layers of full width.  f32: kernel vs plain, each
+    path routing for itself, held to the f32 bar.  bf16: rounding alone
+    flips top-8 sets at full width (128 experts, near-uniform random
+    routers; the plain bf16 path against the f32 plain path shows it), and
+    one flipped expert moves a row's logits by about as much as the bar.  So
+    the bf16 bar is held with the plain path's experts imposed on the kernel
+    path (what the kernels change, carried through every layer), and the
+    readings with each path routing for itself are printed beside the plain
+    bf16 path's own distance from f32 and the flip counts.  Then, at the
+    deepest depth whose f32 copy fits on the card beside the bf16 weights,
+    each path routing for itself, each bf16 path against the f32 plain
+    path: the kernel path may be at most ``MOE_ERR_RATIO`` times as far
+    from it as the plain path."""
+    from repro_torch.models import params as P
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    B, S = 4, 128
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    true_len = torch.tensor([128, 100, 77, 12], device=DEV)
+    feed = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen, device=DEV)
+
+    def run(depth, p, use_kernels, forced=None):
+        return moe_path_logits(dataclasses.replace(cfg, num_layers=depth),
+                               dict(p, layers=p["layers"][:depth]), use_kernels,
+                               toks, true_len, feed, forced)
+
+    def reads(a, b):
+        return [rel(x, y) for x, y in zip(a, b)]
+
+    def calls(r):
+        return [f"{x:.2e}" for x in r]
+
+    d = MOE_SHORT_DEPTH
+    (ko, kr), (po, pr) = run(d, params, True), run(d, params, False)
+    fo, _ = run(d, params, True, forced=pr)
+    p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:d]))
+    (k32, k32r), (f32, f32r) = run(d, p32, True), run(d, p32, False)
+    del p32
+    torch.cuda.empty_cache()
+    free_r, plain_f32 = reads(ko, po), reads(po, f32)
+    forced_r, r32 = reads(fo, po), reads(k32, f32)
+    flips = {"kernel_vs_plain_bf16": sets_differ(kr, pr),
+             "plain_bf16_vs_plain_f32": sets_differ(pr, f32r),
+             "kernel_vs_plain_f32": sets_differ(k32r, f32r)}
+    log(f"[moe] {d} layers, bf16, each path routing for itself: kernel vs plain "
+        f"rel per call {calls(free_r)}; plain bf16 vs plain f32 {calls(plain_f32)} "
+        "(a report)")
+    log(f"[moe] top-{cfg.experts_per_token} expert sets that differ, {d} layers, "
+        f"(position, layer) pairs: " + json.dumps(flips))
+    log(f"[moe] {d} layers, bf16, the plain path's experts imposed on the kernel "
+        f"path: kernel vs plain rel per call {calls(forced_r)} "
+        f"(bar {MOE_LOGIT_REL_TOL[torch.bfloat16]})")
+    log(f"[moe] {d} layers, f32, each path routing for itself: kernel vs plain "
+        f"rel per call {calls(r32)} (bar {MOE_LOGIT_REL_TOL[torch.float32]})")
+    check(max(forced_r) <= MOE_LOGIT_REL_TOL[torch.bfloat16],
+          f"{cfg.name} kernel-path logits off by rel {max(forced_r):.3e}, {d} "
+          "layers bf16, experts imposed")
+    check(max(r32) <= MOE_LOGIT_REL_TOL[torch.float32],
+          f"{cfg.name} kernel-path logits off by rel {max(r32):.3e}, {d} layers f32")
+    report = {f"bf16_{d}_layers_imposed": max(forced_r),
+              f"bf16_{d}_layers_free": max(free_r),
+              f"plain_bf16_vs_f32_{d}_layers": max(plain_f32),
+              f"f32_{d}_layers": max(r32), "topk_sets_differ": flips}
+
+    # the deepest depth whose f32 copy fits beside the bf16 weights
+    layer_f32 = sum(t.numel() * 4 for t in P.tree_leaves(params["layers"][0]))
+    rest_f32 = sum(t.numel() * 4 for k in ("embed", "final_norm")
+                   for t in P.tree_leaves(params[k]))
+    free = torch.cuda.mem_get_info()[0]
+    depth = int(min(cfg.num_layers, (free - MOE_F32_MARGIN - rest_f32) // layer_f32))
+    check(depth >= MOE_SHORT_DEPTH, f"{cfg.name}: an f32 copy of only {depth} layers "
+          f"fits beside the bf16 weights ({free / 1e9:.2f} GB free)")
+    (ko, _), (po, _) = run(depth, params, True), run(depth, params, False)
+    p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:depth]))
+    fo, _ = run(depth, p32, False)
+    del p32
+    torch.cuda.empty_cache()
+    err = {"kernel": reads(ko, fo), "plain": reads(po, fo)}
+    log(f"[moe] bf16 paths vs the f32 plain path, {depth} layers (the deepest "
+        f"whose f32 copy fits beside the bf16 weights; {free / 1e9:.2f} GB were "
+        f"free), each path routing for itself: rel per call kernel "
+        f"{calls(err['kernel'])}, plain {calls(err['plain'])} (bar: kernel <= "
+        f"{MOE_ERR_RATIO} x plain)")
+    check(max(err["kernel"]) <= MOE_ERR_RATIO * max(err["plain"]),
+          f"{cfg.name} bf16 kernel path is rel {max(err['kernel']):.3e} from the f32 "
+          f"plain path at {depth} layers, the plain bf16 path {max(err['plain']):.3e}")
+    report.update(f32_ratio_depth=depth, vs_f32_kernel=max(err["kernel"]),
+                  vs_f32_plain=max(err["plain"]))
+    return report
+
+
+def phase_moe():
+    """qwen3-moe-30b-a3b at full width and depth, served on the paged and
+    the dense backend, its decode step profiled, and its kernel path held
+    to the plain path.  Runs last, after every other model is freed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] device memory allocated before loading: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    cfg, params = load_model(MOE)
+    log(f"[moe] weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    buckets = (32, 64, 128)
+    stats = {}
+    for b in ("paged", "dense"):
+        stats[b] = serve(cfg, params, b, buckets, serve_traffic(cfg.vocab_size))
+        check_moe_serve(cfg, stats[b], b)
+    prof = profile_decode(cfg, params, "paged", buckets)
+    check(prof["paged_launches_per_step"] == cfg.num_layers,
+          f"{cfg.name}: {prof['paged_launches_per_step']} paged-decode launches "
+          f"per decode step, not {cfg.num_layers}")
+    stats["decode_profile"] = prof
+    stats["paths"] = compare_paths_moe(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["launches"] = {name: stats["paged"]["launches"][name]
+                         + stats["dense"]["launches"][name] for name in kernel_ops()}
+    stats["phase_s"] = round(time.perf_counter() - t0, 1)
+    moe = prof.get("moe", {})
+    log(f"[moe] {json.dumps({'phase_s': stats['phase_s'], 'launches': stats['launches'], 'decode_step_device_ms': prof['decode_step_device_ms'], 'decode_step_wall_ms': prof['decode_step_wall_ms'], 'busy_share': prof['device_busy_share'], **moe, **stats['paths']})}")
+    log(f"[moe] {gpu_line()}")
+    return stats
+
+
 def log_engine(prof, mamba) -> None:
     """Engine-level numbers, a report: the qwen2 paged decode step's device
     time by op and the mamba2 serving run's prefill seconds."""
@@ -1233,6 +1553,7 @@ def main() -> int:
         stats["mamba2"] = phase_mamba()
         log_engine(stats["decode_profile"], stats["mamba2"])
         stats["cluster"] = phase_cluster()
+        stats["moe"] = phase_moe()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1241,6 +1562,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": stats[phase]["launches"][name],
                 "cluster_launches": stats["cluster"]["launches"][name],
+                "moe_launches": stats["moe"]["launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

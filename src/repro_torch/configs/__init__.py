@@ -8,6 +8,7 @@ from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
 _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-780m": "mamba2_780m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,5 +1,6 @@
 """Functional layers of the port: the subset of the reference's
-``models/layers.py`` that a dense GQA decoder (qwen2) runs.
+``models/layers.py`` that dense GQA decoders (qwen2) and MoE decoders with
+q/k RMSNorm (qwen3-moe) run.
 
 Conventions follow the reference: activations in the parameter dtype,
 softmax and norm statistics in f32, attention scores accumulated in f32
@@ -85,6 +86,9 @@ def attention_specs(cfg: ModelConfig) -> dict:
         specs["bq"] = ParamSpec((H, hd), ("heads", "qkv"), init="zeros")
         specs["bk"] = ParamSpec((KV, hd), ("kv_heads", "qkv"), init="zeros")
         specs["bv"] = ParamSpec((KV, hd), ("kv_heads", "qkv"), init="zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = rmsnorm_specs(hd)
+        specs["k_norm"] = rmsnorm_specs(hd)
     return specs
 
 
@@ -99,6 +103,9 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, theta: float, *, angles=None
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if cfg.use_rope:
         cos, sin = angles if angles is not None else rope_angles(
             positions, q.shape[-1], theta)
@@ -280,6 +287,95 @@ def mlp_apply(p, x, cfg: ModelConfig):
     """SwiGLU (or GeGLU) MLP."""
     h = _act(cfg.mlp_activation, x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (per-row capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The second-to-last dim of every leaf is the one its product contracts
+    (D for the router and for gate/up, F for down), so the default fan-in
+    rule of ``params.init`` is the contracted size here, as in the
+    reference."""
+    D, E, F_ = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    return {
+        "router": ParamSpec((D, E), ("embed", "experts_r")),
+        "w_gate": ParamSpec((E, D, F_), ("experts", "embed", "moe_mlp")),
+        "w_up": ParamSpec((E, D, F_), ("experts", "embed", "moe_mlp")),
+        "w_down": ParamSpec((E, F_, D), ("experts", "moe_mlp", "embed")),
+    }
+
+
+def _rank_within_expert(e_flat):
+    """Per-row rank of each assignment within its expert, in assignment
+    order: (B, T) expert ids -> (B, T) int64 ranks.  A stable sort groups
+    equal ids in order, the first index of each id's run is its rank 0,
+    and the inverse permutation puts the ranks back."""
+    T = e_flat.shape[1]
+    e_sorted, order = torch.sort(e_flat, dim=1, stable=True)
+    first = torch.searchsorted(e_sorted, e_sorted, side="left")
+    ranks_sorted = torch.arange(T, device=e_flat.device)[None, :] - first
+    return torch.empty_like(ranks_sorted).scatter_(1, order, ranks_sorted)
+
+
+def moe_slots(idx, cfg: ModelConfig):
+    """The dispatch plan of a call: top-K expert ids (B,S,K) -> (slot (B,S*K)
+    of each assignment in its row's (E*C) expert slots, E*C where it is
+    dropped; the capacity C, per row and expert)."""
+    B, S, K = idx.shape
+    E = cfg.num_experts
+    C = max(1, int(math.ceil(S * K / E * cfg.capacity_factor)))
+    e_flat = idx.reshape(B, S * K)
+    ranks = _rank_within_expert(e_flat)
+    slot = torch.where(ranks < C, e_flat * C + ranks, torch.full_like(ranks, E * C))
+    return slot, C
+
+
+def moe_route(p, x, cfg: ModelConfig):
+    """x (B,S,D) -> (renormalised top-K weights, top-K expert ids (B,S,K),
+    router probabilities (B,S,E) f32)."""
+    # router logits from the unrounded f32 product of the operands
+    probs = torch.softmax(x.to(f32) @ p["router"].to(f32), dim=-1)
+    w, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    return w / w.sum(-1, keepdim=True).clamp(min=1e-9), idx, probs
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x (B,S,D) -> (y, aux loss).  Per-row (sequence) capacity dispatch: each
+    row gives every expert C slots, assignments past them are dropped, every
+    expert computes all its slots (empty ones on a zero row), and each token
+    gathers its K slots back, weighted by its renormalised top-K."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    w, idx, probs = moe_route(p, x, cfg)                        # (B,S,K)
+
+    # switch-style aux load-balancing loss
+    me = probs.mean(dim=(0, 1))                                 # (E,)
+    counts = torch.zeros(E, dtype=f32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=f32, device=x.device))
+    aux = E * (me * counts / (B * S * K)).sum()
+
+    T = S * K
+    slot, C = moe_slots(idx, cfg)
+    tok = torch.arange(S, device=x.device).repeat_interleave(K).expand(B, T)
+    # the token of every slot, S (the zero sentinel row) where it is empty;
+    # dropped assignments land in a spare column that is cut off
+    buf_tok = torch.full((B, E * C + 1), S, dtype=torch.long, device=x.device)
+    buf_tok.scatter_(1, slot, tok)
+    buf_tok = buf_tok[:, : E * C]
+
+    xp = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)            # sentinel row
+    xs = torch.gather(xp, 1, buf_tok[:, :, None].expand(B, E * C, D))
+    xs = xs.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    h = _act(cfg.mlp_activation, torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
+    yexp = torch.bmm(h, p["w_down"]).view(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+
+    # combine by gather: each token pulls its K slots back
+    yp = torch.cat([yexp, yexp.new_zeros(B, 1, D)], dim=1)
+    gat = torch.gather(yp, 1, slot[:, :, None].expand(B, T, D))  # (B,T,D)
+    y = (gat.view(B, S, K, D) * w[..., None].to(gat.dtype)).sum(dim=2)
+    return y.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

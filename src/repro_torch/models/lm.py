@@ -1,5 +1,6 @@
-"""Decoder-only LM of the port: dense global-attention decoders (qwen2)
-and attention-free SSM decoders (mamba2).
+"""Decoder-only LM of the port: dense global-attention decoders (qwen2),
+MoE decoders with q/k RMSNorm (qwen3-moe) and attention-free SSM decoders
+(mamba2).
 
 The reference runs a ``lax.scan`` over stacked layer groups; here the trunk
 is a plain loop over ``params["layers"]``, one dict per layer.  Caches are
@@ -28,8 +29,10 @@ from repro_torch.models import params as P
 
 def _unsupported(cfg: ModelConfig) -> str | None:
     """Name of the first model family this port does not cover yet."""
-    if cfg.num_experts:
-        return "MoE"
+    # the MoE family (every layer MoE or dense by ``moe_every``) is ported;
+    # expert layers inside another family (jamba's hybrid stack) are not
+    if cfg.num_experts and cfg.family != "moe":
+        return f"MoE layers in a {cfg.family} model"
     if cfg.family == "hybrid" or cfg.attn_every:
         return "hybrid attention/SSM"
     if cfg.local_ratio or cfg.local_window or cfg.sliding_window:
@@ -40,15 +43,14 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return "enc-dec"
     if cfg.mlp_activation not in ("silu", "gelu"):
         return f"{cfg.mlp_activation} MLP"
-    if cfg.qk_norm:
-        return "qk-norm"
     return None
 
 
-def block_specs(cfg: ModelConfig, kind: str) -> dict:
+def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
     mixer = M.ssd_specs(cfg) if kind == "ssm" else L.attention_specs(cfg)
     return {"ln1": L.rmsnorm_specs(cfg.d_model), "mixer": mixer,
-            "ln2": L.rmsnorm_specs(cfg.d_model), "mlp": L.mlp_specs(cfg)}
+            "ln2": L.rmsnorm_specs(cfg.d_model),
+            "mlp": L.moe_specs(cfg) if is_moe else L.mlp_specs(cfg)}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -64,6 +66,7 @@ class LM:
         self.cfg = cfg
         self.perf = perf
         self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+        self.moes = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
         self.has_attn = "attn" in self.kinds
 
     # ------------------------------------------------------------- specs
@@ -71,7 +74,7 @@ class LM:
         cfg = self.cfg
         return {"embed": L.embed_specs(cfg),
                 "final_norm": L.rmsnorm_specs(cfg.d_model),
-                "layers": [block_specs(cfg, k) for k in self.kinds]}
+                "layers": [block_specs(cfg, k, m) for k, m in zip(self.kinds, self.moes)]}
 
     def cache_specs(self, batch: int, max_len: int) -> list:
         """Per-layer caches; every entry has its batch axis first."""
@@ -188,6 +191,8 @@ class LM:
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None):
+        """Run every layer; returns (x, new caches, the MoE layers' summed aux
+        loss), as the reference's trunk does.  Serving ignores aux."""
         cfg = self.cfg
         slots = angles = None
         if self.has_attn:
@@ -195,6 +200,7 @@ class LM:
                                       block_table, live)
             angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         new_caches = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
             cache = None if caches is None else caches[i]
@@ -209,9 +215,12 @@ class LM:
                     angles=angles)
             new_caches.append(nc)
             x = x + mix
-            if cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
+            if self.moes[i]:
+                y, a = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+                x, aux = x + y, aux + a
+            elif cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
                 x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-        return x, new_caches
+        return x, new_caches, aux
 
     def _last_logits(self, params, x, idx):
         """Final norm + f32 logits at per-row sequence index ``idx`` (B,)."""
@@ -230,8 +239,8 @@ class LM:
         B, S = tokens.shape
         x = L.embed_apply(params["embed"], tokens, self.cfg)
         positions = torch.arange(S, device=tokens.device)[None, :]
-        x, caches = self._trunk(params, x, mode="prefill", positions=positions,
-                                max_len=max_len, true_len=true_len)
+        x, caches, _ = self._trunk(params, x, mode="prefill", positions=positions,
+                                   max_len=max_len, true_len=true_len)
         if true_len is None:
             idx = torch.full((B,), S - 1, device=tokens.device)
         else:
@@ -250,9 +259,9 @@ class LM:
         is left untouched.  Returns (logits (B,V) f32 at each row's last
         valid chunk position, caches)."""
         x = L.embed_apply(params["embed"], tokens, self.cfg)
-        x, caches = self._trunk(params, x, mode="chunk",
-                                positions=self._chunk_positions(tokens, pos0),
-                                caches=caches, pos=pos0, true_len=n_valid)
+        x, caches, _ = self._trunk(params, x, mode="chunk",
+                                   positions=self._chunk_positions(tokens, pos0),
+                                   caches=caches, pos=pos0, true_len=n_valid)
         return self._last_logits(params, x, (n_valid.long() - 1).clamp(min=0)), caches
 
     def decode_step(self, params, tokens, pos, caches, live=None):
@@ -260,8 +269,8 @@ class LM:
         False rows take no cache write (rows mid chunked prefill).  Returns
         (logits (B,V) f32, caches)."""
         x = L.embed_apply(params["embed"], tokens, self.cfg)
-        x, caches = self._trunk(params, x, mode="decode", positions=pos[:, None],
-                                caches=caches, pos=pos, live=live)
+        x, caches, _ = self._trunk(params, x, mode="decode", positions=pos[:, None],
+                                   caches=caches, pos=pos, live=live)
         return self._last_logits(params, x, torch.zeros_like(pos)), caches
 
     def decode_step_paged(self, params, tokens, pos, pools, block_table, live=None):
@@ -269,9 +278,9 @@ class LM:
         int32, -1 = unmapped; live (B,) bool — False rows (empty or mid
         prefill) neither write their token nor count context."""
         x = L.embed_apply(params["embed"], tokens, self.cfg)
-        x, pools = self._trunk(params, x, mode="paged_decode",
-                               positions=pos[:, None], caches=pools, pos=pos,
-                               block_table=block_table, live=live)
+        x, pools, _ = self._trunk(params, x, mode="paged_decode",
+                                  positions=pos[:, None], caches=pools, pos=pos,
+                                  block_table=block_table, live=live)
         return self._last_logits(params, x, torch.zeros_like(pos)), pools
 
     def prefill_chunk_paged(self, params, tokens, pos0, n_valid, pools, block_table):
@@ -279,10 +288,10 @@ class LM:
         starts the first chunk at pos0 = n_cached.  Rows with n_valid == 0
         are left untouched."""
         x = L.embed_apply(params["embed"], tokens, self.cfg)
-        x, pools = self._trunk(params, x, mode="paged_chunk",
-                               positions=self._chunk_positions(tokens, pos0),
-                               caches=pools, pos=pos0, true_len=n_valid,
-                               block_table=block_table)
+        x, pools, _ = self._trunk(params, x, mode="paged_chunk",
+                                  positions=self._chunk_positions(tokens, pos0),
+                                  caches=pools, pos=pos0, true_len=n_valid,
+                                  block_table=block_table)
         return self._last_logits(params, x, (n_valid.long() - 1).clamp(min=0)), pools
 
 
