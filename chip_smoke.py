@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Six phases, each fatal on failure:
+Seven phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -53,7 +53,19 @@ Six phases, each fatal on failure:
            (expert products, router, paged decode) against the weight-read
            bound; its kernel path held to the plain path at 4 layers and
            to the f32 plain path at the deepest depth that fits
-           (``compare_paths_moe``).
+           (``compare_paths_moe``);
+7. gemma3  gemma3-27b whole (62 layers, 52 local with a window of 1024 and
+           10 global, 54 GB of bf16 weights, after qwen3-moe is freed):
+           flash first checked alone at its heads (32 over 16, head_dim
+           128, B=4, S=2048, windows 1024, 0 and 1000; bf16 and f32) and
+           timed beside SDPA with the same mask; then 10 requests of 12 to
+           3600 tokens on the dense backend (ring caches have no paged
+           form), max_len 4096: flash must launch 62 times a prefill group
+           and paged decode never; its decode step profiled against the
+           weight-read bound; its kernel path held to the plain path at 6
+           layers along a bucketed prefill, a chunk and decode across the
+           ring's wrap, and to the f32 plain path at the deepest depth that
+           fits (``compare_paths_gemma``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -145,10 +157,12 @@ def dev_us(e) -> float:
 
 
 def device_profile(fn, iters: int = 20) -> tuple[float, list[str]]:
-    """Device time per call of every kernel ``fn()`` launches, summed over
+    """Device time per call of every kernel ``fn()`` launches, over
     ``iters`` calls under torch.profiler (the time the card is busy, with
     the host's launch cost left out), and the names of the device
-    functions that ran."""
+    functions that ran.  Each kernel counts its mean duration times the
+    launches a call makes of it, so that a trace which lost some of its
+    records still reads the kernels' own time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -158,13 +172,15 @@ def device_profile(fn, iters: int = 20) -> tuple[float, list[str]]:
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if dev_us(e) > 0]
-        if rows:
+        if rows and all(e.count % iters == 0 for e in rows):
             break
-        # a trace that holds no device activity at all is the tracer's
-        # failure, not the kernel's: trace again
-        log(f"[profile] trace {attempt + 1} recorded no device activity "
-            f"({len(prof.key_averages())} entries)")
-    return sum(dev_us(e) for e in rows) / iters / 1e3, sorted(e.key for e in rows)
+        # no device activity, or records lost (a kernel counted other than
+        # a whole number of times a call): the tracer's failure, not the
+        # kernel's, so trace again
+        log(f"[profile] trace {attempt + 1} recorded "
+            f"{[(e.key[:48], e.count) for e in rows]} for {iters} calls")
+    per_call = sum(dev_us(e) / e.count * max(1, round(e.count / iters)) for e in rows)
+    return per_call / 1e3, sorted(e.key for e in rows)
 
 
 def on_device(e) -> bool:
@@ -369,8 +385,9 @@ def check_ssd(worst):
                 device_ms=dev, device_kernels=names, device_ms_by_rows=by_rows)
 
 
-def time_flash(B, S, H, KV, d, gen):
-    """Kernel, plain version, SDPA and bound at (B, S=Sq=Skv), causal, bf16."""
+def time_flash(B, S, H, KV, d, gen, window: int = 0):
+    """Kernel, plain version, SDPA and bound at (B, S=Sq=Skv), causal, bf16;
+    with a window SDPA takes the same visibility as a boolean mask."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -380,16 +397,22 @@ def time_flash(B, S, H, KV, d, gen):
     v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     def kernel():
-        return flash_ops.attention(q, k, v, causal=True)
+        return flash_ops.attention(q, k, v, causal=True, window=window)
+
+    mask = None
+    if window:
+        pos = torch.arange(S, device=DEV)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, is_causal=not window, enable_gqa=True)
     ms = cuda_ms(kernel)
-    plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True), iters=20)
+    plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True, window=window),
+                    iters=5 if S > 1024 else 20)
     lib = cuda_ms(sdpa)
-    b_ms, b_by = bound(*flash_work(B, S, S, H, KV, d, 0, 2), dtype)
-    return dict(shape=f"B={B} S={S} H={H} KV={KV} d={d}", ms=ms,
+    b_ms, b_by = bound(*flash_work(B, S, S, H, KV, d, window, 2), dtype)
+    return dict(shape=f"B={B} S={S} H={H} KV={KV} d={d} window={window}", ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa))
 
@@ -545,13 +568,14 @@ def bucket_groups(eng) -> list[int]:
     return sorted(b for _, b in seen)
 
 
-def serve(cfg, params, backend: str, buckets, waves):
+def serve(cfg, params, backend: str, buckets, waves, max_len: int = 1024):
     from repro_torch.serving import (CompletionRequest, CompletionsAPI,
                                      InferenceEngine)
 
-    eng = InferenceEngine(cfg, params=params, capacity=8, max_len=1024,
+    eng = InferenceEngine(cfg, params=params, capacity=8, max_len=max_len,
                           buckets=buckets, block_size=16,
                           kv_backend=backend, seed=SEED, device=DEV)
+    kv_bytes = sum(t.nbytes for pool in eng.caches for t in pool.values())
     api = CompletionsAPI(eng, model=cfg.name)
     results = []
     ops = kernel_ops()
@@ -594,6 +618,7 @@ def serve(cfg, params, backend: str, buckets, waves):
         prefill_s=round(sum(st.prefill_s for st in hist), 3),
         decode_s=round(sum(st.decode_s for st in hist), 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        kv_pool_bytes=kv_bytes,
         launches=counts, bucket_groups=bucket_groups(eng),
         chunk_steps=sum(1 for st in hist if st.chunk_rows),
         chunk_steps_with_decode=sum(1 for st in hist
@@ -862,13 +887,16 @@ def profile_decode(cfg, params, backend: str, buckets, steps: int = 5):
 
 def weight_read_bound_ms(cfg) -> tuple[float, int]:
     """The least time a decode step can take when it reads every weight
-    once (all but the embedding table, of which it gathers a few rows), at
-    3.35 TB/s: (ms, bytes)."""
+    once, at 3.35 TB/s: (ms, bytes).  An untied embedding table is left
+    out (the step gathers a few rows of it); a tied one is read whole by
+    the unembedding."""
     from repro_torch.models import params as P
     from repro_torch.models.lm import make_model
 
     specs = make_model(cfg).param_specs()
-    nbytes = P.count_bytes(specs) - P.count_bytes(specs["embed"]["embedding"])
+    nbytes = P.count_bytes(specs)
+    if not cfg.tie_embeddings:
+        nbytes -= P.count_bytes(specs["embed"]["embedding"])
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
@@ -1525,6 +1553,216 @@ def phase_moe():
     return stats
 
 
+# ----------------------------------------------------------------- gemma3
+GEMMA = "gemma3-27b"
+GEMMA_BYTES = 54_018_046_976  # bf16 weights of the port's specs, all 62 layers
+GEMMA_BUCKETS = (128, 512, 2048)
+GEMMA_MAX_LEN = 4096
+GEMMA_PROMPTS = (12, 100, 400, 1000, 1100, 1500, 2000, 2600, 3000, 3600)
+GEMMA_HEADS = (32, 16, 128)   # H, KV, head_dim
+GEMMA_FLASH = (4, 2048)       # B, S = Sq = Skv of the flash checks
+GEMMA_WINDOWS = (1024, 0, 1000)
+GEMMA_SHORT_DEPTH = 6         # one period: five local layers, one global
+GEMMA_ERR_RATIO = 1.5         # deepest f32 depth: kernel vs plain, distance to f32
+GEMMA_F32_MARGIN = 6e9        # device bytes left free beside the f32 copy
+
+
+def gemma_traffic(vocab: int):
+    """10 requests of 12..3600 tokens: the 1000-token prompt wraps its ring
+    (1024 slots) in decode, 1100..2000 go in one bucket-2048 group (the
+    window biting inside flash), 2600..3600 in chunks of 2048 longer than
+    the ring; 10 requests over 8 rows reuse two rows."""
+    rng = np.random.default_rng(SEED + 5)
+    return [[[int(x) for x in rng.integers(0, vocab, n)] for n in GEMMA_PROMPTS]]
+
+
+def check_flash_gemma(worst) -> dict:
+    """Flash alone at gemma3's heads (32 over 16, head_dim 128), B=4, S=2048,
+    windows 1024, 0 and 1000 (no whole tile), bf16 and f32, against its
+    plain version; then each window timed in bf16 beside SDPA with the same
+    mask and the bound."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    B, S = GEMMA_FLASH
+    H, KV, d = GEMMA_HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in GEMMA_WINDOWS:
+            q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
+            k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            out = flash_ops.attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=True, window=window).transpose(1, 2)
+            err, ok = max_err(out, ref, TOL[("flash", dtype)])
+            del q, k, v, ref, out
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            what = f"B={B} S={S} H={H} KV={KV} d={d} window={window}"
+            log(f"[gemma3] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
+            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
+    rows = {}
+    for window in GEMMA_WINDOWS:
+        rows[f"window_{window}"] = r = time_flash(B, S, H, KV, d, gen, window=window)
+        log(f"[gemma3] flash_attention timing bf16: {json.dumps(r)}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_gemma_serve(cfg, stats):
+    counts, groups = stats["launches"], stats["bucket_groups"]
+    check(stats["requests"] == len(GEMMA_PROMPTS),
+          f"{cfg.name}: {stats['requests']} requests served")
+    check(groups and counts["flash_attention"] == cfg.num_layers * len(groups),
+          f"{cfg.name}: {counts['flash_attention']} flash launches for "
+          f"{len(groups)} bucketed prefill groups x {cfg.num_layers} layers")
+    check(2048 in groups, f"{cfg.name}: no prefill group at bucket 2048 ({groups})")
+    check(stats["chunk_steps"] > 0, f"{cfg.name}: no prompt went chunked")
+    check(counts["paged_attention"] == 0 and counts["ssd_scan"] == 0,
+          f"{cfg.name}: paged decode or the SSD scan ran ({counts})")
+
+
+def gemma_path_logits(cfg, params, use_kernels: bool) -> list:
+    """Logits (f32) of every call along two rows' paths, in the dtype of
+    ``params``: a bucketed prefill at 2048 (rows of 1500 and 1018 valid
+    tokens; flash on the kernel path, the window biting on the 1500-token
+    row), a 600-token chunk on row 0 (row 1 idle) through rings it
+    overwrites, then 8 decode steps fed the same drawn tokens whatever the
+    path, in which row 1 passes position 1024 and wraps its rings."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models.lm import LM
+
+    m = LM(cfg, with_overrides(BASELINE, use_kernels=use_kernels))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    B, S = 2, GEMMA_BUCKETS[-1]
+    V = cfg.vocab_size
+    toks = torch.randint(0, V, (B, S), generator=gen, device=DEV)
+    chunk = torch.randint(0, V, (B, S), generator=gen, device=DEV)
+    feed = torch.randint(0, V, (8, B, 1), generator=gen, device=DEV)
+    true_len = torch.tensor([1500, 1018], device=DEV)
+    n_valid = torch.tensor([600, 0], device=DEV)
+    logits, caches = m.prefill(params, {"tokens": toks}, GEMMA_MAX_LEN, true_len=true_len)
+    out = [logits]
+    logits, caches = m.prefill_chunk(params, chunk, true_len, n_valid, caches)
+    out.append(logits[:1])                     # row 1 took no chunk
+    pos = true_len + n_valid
+    for f in feed:
+        logits, caches = m.decode_step(params, f, pos, caches)
+        out.append(logits)
+        pos = pos + 1
+    out = [o.float() for o in out]
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
+    return out
+
+
+def compare_paths_gemma(cfg, params) -> dict:
+    """gemma3, the kernel path against the plain path on the same weights
+    (:func:`gemma_path_logits`): max |diff| / max |logits| per call, at
+    ``GEMMA_SHORT_DEPTH`` layers held to the bf16 and f32 bars; then at the
+    deepest depth whose f32 copy fits beside the bf16 weights, each bf16
+    path against the f32 plain path, the kernel path at most
+    ``GEMMA_ERR_RATIO`` times as far from it as the plain path."""
+    from repro_torch.models import params as P
+
+    def run(depth, p, use_kernels):
+        return gemma_path_logits(dataclasses.replace(cfg, num_layers=depth),
+                                 dict(p, layers=p["layers"][:depth]), use_kernels)
+
+    def reads(a, b):
+        return [rel(x, y) for x, y in zip(a, b)]
+
+    def calls(r):
+        return [f"{x:.2e}" for x in r]
+
+    d = GEMMA_SHORT_DEPTH
+    report = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else P.tree_map(
+            lambda t: t.float(), dict(params, layers=params["layers"][:d]))
+        r = reads(run(d, p, True), run(d, p, False))
+        del p
+        torch.cuda.empty_cache()
+        log(f"[gemma3] {d} layers, {str(dtype)[6:]}: kernel vs plain logits rel per "
+            f"call {calls(r)} (bar {LOGIT_REL_TOL[dtype]})")
+        check(max(r) <= LOGIT_REL_TOL[dtype],
+              f"{cfg.name} kernel-path logits off by rel {max(r):.3e}, {d} layers {dtype}")
+        report[f"{str(dtype)[6:]}_{d}_layers"] = max(r)
+
+    layer_f32 = sum(t.numel() * 4 for t in P.tree_leaves(params["layers"][0]))
+    rest_f32 = sum(t.numel() * 4 for k in ("embed", "final_norm")
+                   for t in P.tree_leaves(params[k]))
+    free = torch.cuda.mem_get_info()[0]
+    depth = int(min(cfg.num_layers, (free - GEMMA_F32_MARGIN - rest_f32) // layer_f32))
+    check(depth >= d, f"{cfg.name}: an f32 copy of only {depth} layers fits beside "
+          f"the bf16 weights ({free / 1e9:.2f} GB free)")
+    ko, po = run(depth, params, True), run(depth, params, False)
+    p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:depth]))
+    fo = run(depth, p32, False)
+    del p32
+    torch.cuda.empty_cache()
+    err = {"kernel": reads(ko, fo), "plain": reads(po, fo)}
+    log(f"[gemma3] bf16 paths vs the f32 plain path, {depth} layers (the deepest "
+        f"whose f32 copy fits beside the bf16 weights; {free / 1e9:.2f} GB were "
+        f"free): rel per call kernel {calls(err['kernel'])}, plain "
+        f"{calls(err['plain'])} (bar: kernel <= {GEMMA_ERR_RATIO} x plain)")
+    check(max(err["kernel"]) <= GEMMA_ERR_RATIO * max(err["plain"]),
+          f"{cfg.name} bf16 kernel path is rel {max(err['kernel']):.3e} from the f32 "
+          f"plain path at {depth} layers, the plain bf16 path {max(err['plain']):.3e}")
+    report.update(f32_ratio_depth=depth, vs_f32_kernel=max(err["kernel"]),
+                  vs_f32_plain=max(err["plain"]),
+                  ratio=max(err["kernel"]) / max(err["plain"]))
+    return report
+
+
+def phase_gemma3(worst):
+    """gemma3-27b whole (62 layers, 54 GB of bf16 weights drawn on the card
+    after every earlier model is freed), served on the dense backend (ring
+    layers have no paged form) with flash windowed in its 52 local layers;
+    flash first checked alone at its heads, the decode step profiled
+    against the weight-read bound, the kernel path held to the plain path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gemma3] device memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    flash_rows = check_flash_gemma(worst)
+    from repro_torch.models import params as P
+
+    cfg, params = load_model(GEMMA)
+    nbytes = sum(t.nbytes for t in P.tree_leaves(params))
+    log(f"[gemma3] {cfg.num_layers} layers, weight bytes {nbytes:,} drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s (with the flash checks)")
+    check(cfg.num_layers == 62 and nbytes == GEMMA_BYTES,
+          f"{cfg.name}: {cfg.num_layers} layers, {nbytes} weight bytes")
+    stats = serve(cfg, params, "dense", GEMMA_BUCKETS, gemma_traffic(cfg.vocab_size),
+                  max_len=GEMMA_MAX_LEN)
+    check_gemma_serve(cfg, stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_decode(cfg, params, "dense", GEMMA_BUCKETS)
+    bound_ms, wbytes = weight_read_bound_ms(cfg)
+    dev_ms = prof["decode_step_device_ms"]
+    step = {"decode_step_device_ms": dev_ms,
+            "decode_step_wall_ms": prof["decode_step_wall_ms"],
+            "busy_share": prof["device_busy_share"],
+            "weight_bytes_read_once": wbytes, "step_bound_ms": round(bound_ms, 3),
+            "device_over_bound": (round(dev_ms / bound_ms, 3)
+                                  if isinstance(dev_ms, float) else "not measured"),
+            "wall_over_bound": round(prof["decode_step_wall_ms"] / bound_ms, 3)}
+    paths = compare_paths_gemma(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"launches": stats["launches"], "serve": stats, "decode_step": step,
+           "paths": paths, "flash": flash_rows,
+           "phase_s": round(time.perf_counter() - t0, 1)}
+    log(f"[gemma3] {json.dumps({k: out[k] for k in ('phase_s', 'launches', 'decode_step', 'paths')})}")
+    log(f"[gemma3] {gpu_line()}")
+    return out
+
+
 def log_engine(prof, mamba) -> None:
     """Engine-level numbers, a report: the qwen2 paged decode step's device
     time by op and the mamba2 serving run's prefill seconds."""
@@ -1554,6 +1792,10 @@ def main() -> int:
         log_engine(stats["decode_profile"], stats["mamba2"])
         stats["cluster"] = phase_cluster()
         stats["moe"] = phase_moe()
+        worst = {"flash_attention": rows["flash_attention"]["max_abs_err"]}
+        stats["gemma3"] = phase_gemma3(worst)
+        rows["flash_attention"]["max_abs_err"] = worst["flash_attention"]
+        rows["flash_attention"]["gemma3"] = stats["gemma3"]["flash"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1563,6 +1805,7 @@ def main() -> int:
                 "launches": stats[phase]["launches"][name],
                 "cluster_launches": stats["cluster"]["launches"][name],
                 "moe_launches": stats["moe"]["launches"][name],
+                "gemma3_launches": stats["gemma3"]["launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

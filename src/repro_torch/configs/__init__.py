@@ -9,6 +9,8 @@ _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "mamba2-780m": "mamba2_780m",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "gemma3-27b": "gemma3_27b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -16,6 +16,9 @@ class PerfConfig:
     # kernels: dense prefill -> flash attention, paged decode -> paged
     # attention.  On CPU tensors the kernel ops run their plain versions.
     use_kernels: bool = True
+    # queries per slice of the plain attention paths: each slice's f32
+    # scores are (B, heads, q_chunk, keys)
+    q_chunk: int = 512
     # kv cache dtype of prefill caches and paged pools ("bfloat16" | "float32")
     kv_dtype: str = "bfloat16"
 

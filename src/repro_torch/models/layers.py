@@ -1,6 +1,7 @@
 """Functional layers of the port: the subset of the reference's
-``models/layers.py`` that dense GQA decoders (qwen2) and MoE decoders with
-q/k RMSNorm (qwen3-moe) run.
+``models/layers.py`` that dense GQA decoders (qwen2), MoE decoders with
+q/k RMSNorm (qwen3-moe) and windowed decoders with ring KV caches (gemma3,
+mixtral) run.
 
 Conventions follow the reference: activations in the parameter dtype,
 softmax and norm statistics in f32, attention scores accumulated in f32
@@ -22,6 +23,7 @@ from repro_torch.models.params import ParamSpec
 
 f32 = torch.float32
 NEG = -1e30
+UNEMBED_ROWS = 32768      # vocabulary entries per f32 slice of the table
 
 
 # ---------------------------------------------------------------------------
@@ -116,40 +118,48 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, theta: float, *, angles=None
 def _mha_chunk(q, k, v, mask, scale):
     """One (q-chunk, kv-slab) attention with full-row softmax.
 
-    q: (B,cq,H,d)  k,v: (B,sk,KV,d)  mask: (B or 1, cq, sk) bool or None."""
+    q: (B,cq,H,d)  k,v: (B,sk,KV,d)  mask: (B or 1, cq, sk) bool or None.
+    The f32 scores are updated in place, so one (B, heads, cq, sk) tensor
+    of them is alive at a time (serving runs without autograd)."""
     B, cq, H, d = q.shape
     KV = k.shape[2]
     rep = H // KV
     qg = q.reshape(B, cq, KV, rep, d)
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)) * scale
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)).mul_(scale)
     if mask is not None:
         bias = torch.where(mask, 0.0, NEG).to(f32)            # (B|1, cq, sk)
-        scores = scores + bias[:, None, None, :, :]
+        scores.add_(bias[:, None, None, :, :])
     m = scores.amax(dim=-1, keepdim=True).clamp(min=-1e29)   # guard masked rows
-    e = torch.exp(scores - m)
+    e = scores.sub_(m).exp_()
     s = e.sum(dim=-1, keepdim=True)
-    w = (e / s.clamp(min=1e-30)).to(v.dtype)
+    w = e.div_(s.clamp(min=1e-30)).to(v.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w, v)
     return out.reshape(B, cq, H, d)
 
 
 def attention_full(q, k, v, *, causal: bool, window: int = 0,
-                   scale: float | None = None):
-    """Attention over full sequences (prefill); prompts are bounded by the
-    largest prefill bucket, so one slab covers every query.
+                   scale: float | None = None, q_chunk: int = 512):
+    """Attention over full sequences (prefill), the queries in slices of
+    ``q_chunk``, each slice one masked :func:`_mha_chunk` over every key:
+    a query row's softmax is its own, so the slicing changes no number and
+    bounds the f32 scores to (B, heads, q_chunk, Skv).
 
     q: (B,Sq,H,d); k,v: (B,Skv,KV,d), q positions == kv positions."""
     Sq, d = q.shape[1], q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    mask = None
-    if causal:
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        mask = mask[None]
-    return _mha_chunk(q, k, v, mask, scale)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        q1 = min(q0 + q_chunk, Sq)
+        mask = None
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)[:, None]
+            mask = kpos <= qpos
+            if window:
+                mask &= kpos > qpos - window
+            mask = mask[None]
+        outs.append(_mha_chunk(q[:, q0:q1], k, v, mask, scale))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 def attention_decode(q, k_cache, v_cache, kv_mask, scale: float | None = None):
@@ -178,42 +188,82 @@ def attn_out(p, ctx):
 
 
 # ---------------------------------------------------------------------------
-# KV caches (global layers: slot == absolute position)
+# KV caches: global (slot == absolute position) and ring (windowed layers)
 # ---------------------------------------------------------------------------
 
-def kv_cache_specs(cfg: ModelConfig, batch: int, length: int) -> dict:
+def kv_cache_specs(cfg: ModelConfig, batch: int, length: int, *,
+                   ring: bool = False) -> dict:
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     axes = ("batch", "act_kv", "kv_heads", "qkv")
-    return {"k": ParamSpec((batch, length, KV, hd), axes, init="zeros"),
-            "v": ParamSpec((batch, length, KV, hd), axes, init="zeros")}
+    d = {"k": ParamSpec((batch, length, KV, hd), axes, init="zeros"),
+         "v": ParamSpec((batch, length, KV, hd), axes, init="zeros")}
+    if ring:
+        # absolute position held in each ring slot (-1 = empty)
+        d["pos"] = ParamSpec((batch, length), ("batch", "act_kv"),
+                             dtype=torch.int32, init="const", scale=-1)
+    return d
 
 
-def cache_write_prefill(cache, k, v):
-    """Write a full prefill's k/v at positions 0..S-1 of a cache whose length
-    may exceed S.  Right-padded rows need no mask: pad slots sit at positions
-    >= true_len, and decode overwrites slot p when position p becomes
-    visible."""
-    S = k.shape[1]
+def ring_write_slots(pos0, n_valid, chunk: int, length: int):
+    """Where a chunk of positions pos0 .. pos0+n_valid-1 lands in a ring of
+    ``length`` slots: for each slot s, the latest chunk position p = s (mod
+    length), whether it is in the chunk, and its index in the chunk, each
+    (B, length).  Where the chunk is longer than the ring, the latest
+    position that maps to a slot wins, as sequential decode writes would.
+    No device sync."""
+    p0 = pos0.long()[:, None]
+    end1 = p0 + n_valid.long()[:, None] - 1                # last valid position
+    s = torch.arange(length, device=pos0.device)[None, :]
+    p = end1 - torch.remainder(end1 - s, length)
+    valid = (p >= p0) & (n_valid[:, None] > 0)
+    return p, valid, (p - p0).clamp(0, chunk - 1)
+
+
+def cache_write_prefill(cache, k, v, *, ring: bool = False, true_len=None):
+    """Write a full prefill's k/v, positions 0..S-1, into a fresh cache.
+
+    Global caches (length may exceed S): right-padded rows need no mask, pad
+    slots sit at positions >= true_len and decode overwrites slot p when
+    position p becomes visible.  Ring caches hold each row's last W valid
+    tokens (W the ring's length) in slots p % W and mark pad slots -1;
+    ``true_len`` (B,) counts the valid tokens of right-padded rows."""
+    B, S = k.shape[:2]
+    if ring:
+        n = (torch.full((B,), S, device=k.device) if true_len is None
+             else true_len)
+        return cache_write_chunk(cache, k, v, torch.zeros_like(n), n, ring=True)
     cache["k"][:, :S] = k.to(cache["k"].dtype)
     cache["v"][:, :S] = v.to(cache["v"].dtype)
     return cache
 
 
 def chunk_write_slots(pos0, n_valid, chunk: int):
-    """(flat chunk index, row, slot) of the valid positions of a chunk write;
-    one device sync, computed once per forward pass."""
+    """(flat chunk index, row, slot) of the valid positions of a chunk write
+    into a global cache; one device sync, computed once per forward pass."""
     ar = torch.arange(chunk, device=pos0.device)[None, :]
     sel = (ar < n_valid[:, None]).reshape(-1).nonzero()[:, 0]
     rows = sel // chunk
     return sel, rows, pos0.long()[rows] + sel % chunk
 
 
-def cache_write_chunk(cache, k, v, pos0, n_valid, *, slots=None):
+def cache_write_chunk(cache, k, v, pos0, n_valid, *, ring: bool = False,
+                      slots=None):
     """Append a chunk of C tokens at per-row positions pos0 .. pos0+n_valid-1.
 
     k/v: (B,C,KV,hd) right-padded chunk projections; pos0/n_valid (B,).
     Pad positions and rows with n_valid == 0 are not written.  ``slots``:
-    precomputed ``chunk_write_slots``."""
+    precomputed ``chunk_write_slots`` (global) or ``ring_write_slots``
+    (ring), which depend only on the cache's length."""
+    if ring:
+        p, valid, j = slots if slots is not None else ring_write_slots(
+            pos0, n_valid, k.shape[1], cache["k"].shape[1])
+        idx = j[:, :, None, None].expand(-1, -1, *k.shape[2:])
+        m = valid[:, :, None, None]
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c.copy_(torch.where(m, torch.gather(new, 1, idx).to(c.dtype), c))
+        cache["pos"].copy_(torch.where(valid, p.to(cache["pos"].dtype), cache["pos"]))
+        return cache
     if slots is None:
         slots = chunk_write_slots(pos0, n_valid, k.shape[1])
     sel, rows, pos = slots
@@ -222,46 +272,76 @@ def cache_write_chunk(cache, k, v, pos0, n_valid, *, slots=None):
     return cache
 
 
-def attention_chunk(q, k, v, cache, pos0, *, scale: float | None = None):
+def attention_chunk(q, k, v, cache, pos0, *, window: int = 0, ring: bool = False,
+                    scale: float | None = None, q_chunk: int = 512):
     """Chunked-prefill attention: queries at positions pos0+i attend the
     cache as written by previous chunks (positions < pos0) plus this chunk's
-    own k/v causally.  ``cache`` is the cache *before* this chunk's write."""
+    own k/v causally.  ``cache`` is the cache *before* this chunk's write:
+    sourcing the chunk from k/v keeps ring layers exact where the chunk is
+    longer than the ring.  Queries go in slices of ``q_chunk``, as in
+    :func:`attention_full`."""
     B, C, H, d = q.shape
     L = cache["k"].shape[1]
     dev = q.device
-    qpos = pos0.long()[:, None] + torch.arange(C, device=dev)[None, :]  # (B,C)
-    sp = torch.arange(L, device=dev)[None, :].expand(B, L)
-    mc = sp < pos0.long()[:, None]
-    mc = mc[:, None, :] & (sp[:, None, :] <= qpos[:, :, None])         # (B,C,L)
+    p0 = pos0.long()[:, None]
+    qpos = p0 + torch.arange(C, device=dev)[None, :]                  # (B,C)
+    if ring:
+        sp = cache["pos"].long()                                       # (B,L)
+        mc = (sp >= 0) & (sp < p0)
+    else:
+        sp = torch.arange(L, device=dev)[None, :].expand(B, L)
+        mc = sp < p0
     i = torch.arange(C, device=dev)
-    mx = i[None, :] <= i[:, None]                                       # (C,C)
-    mask = torch.cat([mc, mx[None].expand(B, C, C)], dim=2)             # (B,C,L+C)
     kk = torch.cat([cache["k"].to(q.dtype), k.to(q.dtype)], dim=1)
     vv = torch.cat([cache["v"].to(q.dtype), v.to(q.dtype)], dim=1)
     scale = scale if scale is not None else d ** -0.5
-    return _mha_chunk(q, kk, vv, mask, scale)
+    outs = []
+    for q0 in range(0, C, q_chunk):
+        q1 = min(q0 + q_chunk, C)
+        qp = qpos[:, q0:q1, None]
+        m_c = mc[:, None, :] & (sp[:, None, :] <= qp)                 # (B,c,L)
+        ii = i[q0:q1, None]
+        m_x = i[None, :] <= ii                                         # (c,C)
+        if window:
+            m_c &= sp[:, None, :] > qp - window
+            m_x &= i[None, :] > ii - window
+        mask = torch.cat([m_c, m_x[None].expand(B, q1 - q0, C)], dim=2)
+        outs.append(_mha_chunk(q[:, q0:q1], kk, vv, mask, scale))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def cache_write_decode(cache, k, v, pos, live=None):
-    """Write one token at per-row position ``pos`` (B,).  Rows with
-    ``live`` False keep their old slot value (each row writes only its own
-    row, so the select needs no device sync)."""
+def cache_write_decode(cache, k, v, pos, live=None, *, ring: bool = False):
+    """Write one token at per-row position ``pos`` (B,), in slot pos % L
+    (ring caches record the position too).  Rows with ``live`` False keep
+    their old slot values (each row writes only its own row, so the select
+    needs no device sync)."""
     B, L = cache["k"].shape[:2]
     rows = torch.arange(B, device=k.device)
     slot = pos.long() % L
-    for name, new in (("k", k), ("v", v)):
+    new = {"k": k[:, 0], "v": v[:, 0]}
+    if ring:
+        new["pos"] = pos
+    for name, val in new.items():
         c = cache[name]
-        val = new[:, 0].to(c.dtype)
+        val = val.to(c.dtype)
         if live is not None:
-            val = torch.where(live[:, None, None], val, c[rows, slot])
+            keep = live.view(-1, *[1] * (val.dim() - 1))
+            val = torch.where(keep, val, c[rows, slot])
         c[rows, slot] = val
     return cache
 
 
-def cache_valid_mask(cache, pos):
+def cache_valid_mask(cache, pos, *, ring: bool = False, window: int = 0):
     """(B, L) bool — slots visible to the token at per-row position pos."""
+    p = pos.long()[:, None]
+    if ring:
+        sp = cache["pos"]
+        m = (sp >= 0) & (sp <= p)
+        if window:
+            m &= sp > p - window
+        return m
     L = cache["k"].shape[1]
-    return torch.arange(L, device=pos.device)[None, :] <= pos.long()[:, None]
+    return torch.arange(L, device=pos.device)[None, :] <= p
 
 
 # ---------------------------------------------------------------------------
@@ -397,9 +477,16 @@ def embed_apply(p, tokens, cfg: ModelConfig):
     return x
 
 
-def unembed_logits(p, x, cfg: ModelConfig):
+def unembed_logits(p, x, cfg: ModelConfig, *, rows: int = UNEMBED_ROWS):
     """f32 logits: the products are taken in f32 (the reference accumulates
-    bf16 inputs into an f32 result)."""
+    bf16 inputs into an f32 result).  The table is cast to f32 ``rows``
+    vocabulary entries at a time, so the f32 copy never holds the whole
+    table; every logit is the same product."""
+    xf = x.to(f32)
     if cfg.tie_embeddings:
-        return x.to(f32) @ p["embedding"].to(f32).t()
-    return x.to(f32) @ p["unembed"].to(f32)
+        w = p["embedding"]
+        return torch.cat([xf @ w[v0:v0 + rows].to(f32).t()
+                          for v0 in range(0, w.shape[0], rows)], dim=-1)
+    w = p["unembed"]
+    return torch.cat([xf @ w[:, v0:v0 + rows].to(f32)
+                      for v0 in range(0, w.shape[1], rows)], dim=-1)

@@ -1,11 +1,15 @@
 """Decoder-only LM of the port: dense global-attention decoders (qwen2),
-MoE decoders with q/k RMSNorm (qwen3-moe) and attention-free SSM decoders
-(mamba2).
+MoE decoders with q/k RMSNorm (qwen3-moe), windowed decoders (gemma3's
+local and global layers, mixtral's uniform sliding window) and
+attention-free SSM decoders (mamba2).
 
 The reference runs a ``lax.scan`` over stacked layer groups; here the trunk
 is a plain loop over ``params["layers"]``, one dict per layer.  Caches are
 lists with one dict per layer, updated in place: ``{"k", "v"}`` on
-attention layers, ``{"h", "conv_x", "conv_B", "conv_C"}`` on SSM layers.
+global attention layers (slot = absolute position), ``{"k", "v", "pos"}``
+ring caches of ``min(window, max_len)`` slots on windowed layers (slot =
+position mod length, ``pos`` the position a slot holds, -1 when empty),
+``{"h", "conv_x", "conv_B", "conv_C"}`` on SSM layers.
 
 Modes:
   prefill       full sequence; emits fresh per-layer caches
@@ -35,8 +39,6 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return f"MoE layers in a {cfg.family} model"
     if cfg.family == "hybrid" or cfg.attn_every:
         return "hybrid attention/SSM"
-    if cfg.local_ratio or cfg.local_window or cfg.sliding_window:
-        return "ring/local attention"
     if cfg.num_vision_tokens or cfg.family == "vlm":
         return "vision"
     if cfg.is_encoder_decoder or cfg.family == "encdec":
@@ -67,7 +69,7 @@ class LM:
         self.perf = perf
         self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
         self.moes = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
-        self.has_attn = "attn" in self.kinds
+        self.has_attn = any(k != "ssm" for k in self.kinds)
 
     # ------------------------------------------------------------- specs
     def param_specs(self) -> dict:
@@ -76,17 +78,26 @@ class LM:
                 "final_norm": L.rmsnorm_specs(cfg.d_model),
                 "layers": [block_specs(cfg, k, m) for k, m in zip(self.kinds, self.moes)]}
 
+    def _cache_len(self, kind: str, max_len: int) -> int:
+        """KV slots of a layer kind: a ring of the window on windowed
+        layers (``window_for(kind) > 0``), ``max_len`` on global ones."""
+        w = self.cfg.window_for(kind)
+        return min(w, max_len) if w else max_len
+
     def cache_specs(self, batch: int, max_len: int) -> list:
         """Per-layer caches; every entry has its batch axis first."""
-        return [M.ssm_cache_specs(self.cfg, batch) if k == "ssm"
-                else L.kv_cache_specs(self.cfg, batch, max_len)
+        cfg = self.cfg
+        return [M.ssm_cache_specs(cfg, batch) if k == "ssm"
+                else L.kv_cache_specs(cfg, batch, self._cache_len(k, max_len),
+                                      ring=cfg.window_for(k) > 0)
                 for k in self.kinds]
 
     def supports_paged(self) -> bool:
         """Paged KV serving covers decoders whose every layer is global
-        attention.  SSM state is per row (nothing to page): the engine
-        keeps the dense backend for those."""
-        return set(self.kinds) == {"attn"}
+        attention.  SSM state is per row (nothing to page) and ring layers
+        keep their own slot positions: the engine keeps the dense backend
+        for those."""
+        return set(self.kinds) == {"attn"} and self.cfg.window_for("attn") == 0
 
     def paged_cache_specs(self, num_blocks: int, block_size: int) -> list:
         """Per-layer paged pools, indexed through one shared block table."""
@@ -101,19 +112,25 @@ class LM:
                 for _ in range(cfg.num_layers)]
 
     # ------------------------------------------------------------- blocks
-    def _attend(self, p, h, *, mode, positions, cache, pos, max_len,
+    def _theta(self, kind: str) -> float:
+        cfg = self.cfg
+        return cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
+
+    def _attend(self, p, h, kind, *, mode, positions, cache, pos, max_len,
                 true_len, block_table, live, slots, angles):
         # imported here: repro_torch.serving imports the engine, which
         # imports this module
         from repro_torch.serving.kv_cache import (paged_gather, paged_write,
                                                   paged_write_chunk)
         cfg, perf = self.cfg, self.perf
-        q, k, v = L._project_qkv(p, h, cfg, positions, cfg.rope_theta,
+        window = cfg.window_for(kind)
+        ring = window > 0
+        q, k, v = L._project_qkv(p, h, cfg, positions, self._theta(kind),
                                  angles=angles)
         new_cache = None
         if mode == "decode":
-            L.cache_write_decode(cache, k, v, pos, live=live)
-            mask = L.cache_valid_mask(cache, pos)
+            L.cache_write_decode(cache, k, v, pos, live=live, ring=ring)
+            mask = L.cache_valid_mask(cache, pos, ring=ring, window=window)
             ctx = L.attention_decode(q, cache["k"].to(q.dtype),
                                      cache["v"].to(q.dtype), mask)
             new_cache = cache
@@ -143,24 +160,30 @@ class LM:
             S_ctx = block_table.shape[1] * cache["k"].shape[1]
             gk = paged_gather(cache["k"], block_table, S_ctx).to(q.dtype)
             gv = paged_gather(cache["v"], block_table, S_ctx).to(q.dtype)
-            ctx = L.attention_chunk(q, k, v, {"k": gk, "v": gv}, pos)
+            ctx = L.attention_chunk(q, k, v, {"k": gk, "v": gv}, pos,
+                                    q_chunk=perf.q_chunk)
             paged_write_chunk(cache["k"], cache["v"], block_table, pos,
                               true_len, k, v, slots=slots)
             new_cache = cache
         elif mode == "chunk":
             # attend the pre-write cache + this chunk's own k/v, then append
-            ctx = L.attention_chunk(q, k, v, cache, pos)
-            new_cache = L.cache_write_chunk(cache, k, v, pos, true_len, slots=slots)
+            ctx = L.attention_chunk(q, k, v, cache, pos, window=window,
+                                    ring=ring, q_chunk=perf.q_chunk)
+            new_cache = L.cache_write_chunk(cache, k, v, pos, true_len,
+                                            ring=ring, slots=slots)
         else:  # prefill
             if perf.use_kernels:
-                ctx = flash_attention(q, k, v, causal=True, window=0)
+                ctx = flash_attention(q, k, v, causal=True, window=window)
             else:
-                ctx = L.attention_full(q, k, v, causal=True)
-            B = h.shape[0]
+                ctx = L.attention_full(q, k, v, causal=True, window=window,
+                                       q_chunk=perf.q_chunk)
+            specs = L.kv_cache_specs(cfg, h.shape[0], self._cache_len(kind, max_len),
+                                     ring=ring)
             dt = torch_dtype(perf.kv_dtype)
-            empty = {n: torch.zeros((B, max_len, cfg.num_kv_heads, cfg.head_dim),
-                                    dtype=dt, device=h.device) for n in ("k", "v")}
-            new_cache = L.cache_write_prefill(empty, k, v)
+            empty = {name: t.to(dt) if t.is_floating_point() else t
+                     for name, t in P.init(None, specs, h.device).items()}
+            new_cache = L.cache_write_prefill(empty, k, v, ring=ring,
+                                              true_len=true_len)
         return L.attn_out(p, ctx), new_cache
 
     def _ssm(self, p, h, *, mode, cache, true_len, live):
@@ -174,20 +197,34 @@ class LM:
         return M.ssd_apply_full(p, h, cfg, want_state=True, true_len=true_len,
                                 use_kernels=self.perf.use_kernels)
 
-    @staticmethod
-    def _write_slots(mode, C, caches, pos, true_len, block_table, live):
-        """Where this pass's cache writes land — the same in every layer, so
-        computed (with its one device sync) once per pass."""
+    def _write_slots(self, mode, C, caches, pos, true_len, block_table, live):
+        """Where this pass's cache writes land, per layer: the same in every
+        layer with a cache of one kind and length, so computed (with its one
+        device sync on global caches) once for each."""
         from repro_torch.serving.kv_cache import (paged_write_chunk_slots,
                                                   paged_write_slots)
+        n = len(self.kinds)
         if mode == "paged_decode":
-            return paged_write_slots(block_table, pos, caches[0]["k"].shape[1], live)
+            return [paged_write_slots(block_table, pos, caches[0]["k"].shape[1],
+                                      live)] * n
         if mode == "paged_chunk":
-            return paged_write_chunk_slots(block_table, pos, true_len, C,
-                                           caches[0]["k"].shape[1])
-        if mode == "chunk":
-            return L.chunk_write_slots(pos, true_len, C)
-        return None
+            return [paged_write_chunk_slots(block_table, pos, true_len, C,
+                                            caches[0]["k"].shape[1])] * n
+        if mode != "chunk":
+            return [None] * n
+        by_len: dict = {}
+        out = []
+        for cache, kind in zip(caches, self.kinds):
+            if kind == "ssm":
+                out.append(None)
+                continue
+            # ring slots depend on the ring's length; global slots on none
+            key = cache["k"].shape[1] if self.cfg.window_for(kind) else None
+            if key not in by_len:
+                by_len[key] = (L.chunk_write_slots(pos, true_len, C) if key is None
+                               else L.ring_write_slots(pos, true_len, C, key))
+            out.append(by_len[key])
+        return out
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None):
@@ -198,7 +235,9 @@ class LM:
         if self.has_attn:
             slots = self._write_slots(mode, x.shape[1], caches, pos, true_len,
                                       block_table, live)
-            angles = L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+            # one rope table for each theta (gemma3: local and global)
+            angles = {th: L.rope_angles(positions, cfg.head_dim, th)
+                      for th in {self._theta(k) for k in self.kinds if k != "ssm"}}
         new_caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
@@ -209,10 +248,10 @@ class LM:
                                     true_len=true_len, live=live)
             else:
                 mix, nc = self._attend(
-                    p["mixer"], h, mode=mode, positions=positions, cache=cache,
-                    pos=pos, max_len=max_len, true_len=true_len,
-                    block_table=block_table, live=live, slots=slots,
-                    angles=angles)
+                    p["mixer"], h, kind, mode=mode, positions=positions,
+                    cache=cache, pos=pos, max_len=max_len, true_len=true_len,
+                    block_table=block_table, live=live, slots=slots[i],
+                    angles=angles[self._theta(kind)])
             new_caches.append(nc)
             x = x + mix
             if self.moes[i]:

@@ -14,7 +14,8 @@ Prefill is a pipeline:
   call covers the whole pool — idle rows ride along and are left untouched.
 
 Two KV backends: ``dense`` (one cache row per request, the default: a
-(max_len, KV, hd) KV row per attention layer, the recurrent state per SSM
+(max_len, KV, hd) KV row per global attention layer, a ring of the window
+with its slot positions per windowed layer, the recurrent state per SSM
 layer) and ``paged`` (block pools with a prefix cache, copy-on-write of
 shared tails; global-attention decoders only, other models run dense).
 Caches are preallocated tensors updated in place; every cache write a row
@@ -115,6 +116,9 @@ class InferenceEngine:
         # conversion all pivot on them, on either backend
         specs = self.model.cache_specs(capacity, max_len)
         self._batch_axes = P.tree_map(lambda sp: sp.axes.index("batch"), specs)
+        # the fill of an empty row (ring slot positions hold -1)
+        self._reset_vals = P.tree_map(
+            lambda sp: sp.scale if sp.init == "const" else 0, specs)
         self._seq_axes = P.tree_map(
             lambda sp: sp.axes.index("act_kv") if "act_kv" in sp.axes else None,
             specs)
@@ -471,12 +475,13 @@ class InferenceEngine:
                 self.caches, self._t(self.block_tables))
         else:
             if fresh:
-                # a reused row must not leak its previous occupant's KV or
-                # SSM state
+                # a reused row must not leak its previous occupant's KV,
+                # ring positions or SSM state
                 idx = self._t(np.asarray(fresh, np.int64))
-                for pool, axes in zip(self.caches, self._batch_axes):
+                for pool, axes, fill in zip(self.caches, self._batch_axes,
+                                            self._reset_vals):
                     for n, t in pool.items():
-                        t.index_fill_(axes[n], idx, 0)
+                        t.index_fill_(axes[n], idx, fill[n])
             logits, _ = self.model.prefill_chunk(
                 self.params, self._t(toks), self._t(pos0), self._t(nval),
                 self.caches)

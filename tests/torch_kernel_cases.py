@@ -23,6 +23,7 @@ FLASH_CASES = [
     (1, 130, 130, 14, 2, 128, 0),      # d = 128 instance (two TMA boxes)
     (1, 70, 90, 14, 2, 80, 0),         # d = 80 runs in the 128 instance
     (1, 200, 200, 14, 2, 64, 20),      # window shorter than a key tile
+    (1, 320, 320, 4, 2, 128, 100),     # gemma3: rep 2, d = 128, a window of no whole tile
 ]
 # a q that is a strided view, (B,H,Sq,d) storage read as (B,Sq,H,d)
 FLASH_STRIDED_Q = (2, 96, 96, 14, 2, 64, 0)
