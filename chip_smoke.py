@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Seven phases, each fatal on failure:
+Eight phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -45,7 +45,21 @@ Seven phases, each fatal on failure:
            ms, the payload gather and scatter beside their bound, step wall
            ms by replica count, a profiled window's device busy share and
            served tokens/s;
-6. moe     qwen3-moe-30b-a3b whole (48 layers, 128 experts top-8, 61 GB of
+6. family  gemma-2b, gemma3-4b and paligemma-3b whole (18, 34 and 18
+           layers, head_dim 256; 5.0, 7.8 and 5.0 GB of bf16 weights, each
+           freed before the next): flash and paged decode first checked
+           alone at head_dim 256 (bf16 and f32) and timed, flash beside SDPA;
+           gemma-2b (8 heads over 1) served like qwen2 on the paged then
+           the dense backend, exactly 18 paged launches a decode step and
+           18 flash a prefill group; gemma3-4b like gemma3-27b below,
+           exactly 34 flash launches a group, 29 of them windowed;
+           paligemma-3b through ``InferenceEngine.submit``, 10 requests of
+           12 to 500 text tokens, half behind seeded patches, a 513-token
+           prompt rejected, no kernel launched (the prefix-LM mask takes
+           the plain attention, as in the reference); each decode step
+           profiled against the weight-read bound and the kernel path held
+           to the plain path (``compare_paths_deep``);
+7. moe     qwen3-moe-30b-a3b whole (48 layers, 128 experts top-8, 61 GB of
            bf16 weights drawn on the card after every earlier model is
            freed), served like qwen2 on the paged then the dense backend:
            paged decode must launch 48 times a decode step and flash 48
@@ -54,7 +68,7 @@ Seven phases, each fatal on failure:
            bound; its kernel path held to the plain path at 4 layers and
            to the f32 plain path at the deepest depth that fits
            (``compare_paths_moe``);
-7. gemma3  gemma3-27b whole (62 layers, 52 local with a window of 1024 and
+8. gemma3  gemma3-27b whole (62 layers, 52 local with a window of 1024 and
            10 global, 54 GB of bf16 weights, after qwen3-moe is freed):
            flash first checked alone at its heads (32 over 16, head_dim
            128, B=4, S=2048, windows 1024, 0 and 1000; bf16 and f32) and
@@ -65,7 +79,7 @@ Seven phases, each fatal on failure:
            weight-read bound; its kernel path held to the plain path at 6
            layers along a bucketed prefill, a chunk and decode across the
            ring's wrap, and to the f32 plain path at the deepest depth that
-           fits (``compare_paths_gemma``).
+           fits (``compare_paths_deep``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -211,6 +225,12 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-9))
 
 
+def release() -> None:
+    """Return to the card the memory of tensors whose last reference is gone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- phase 1
 def phase_build():
     from repro_torch.kernels import build
@@ -229,7 +249,7 @@ def phase_build():
         log(f"[build] HGMMA instructions per {name} kernel: {json.dumps(c)}")
     # the bf16 instances run on wgmma; the f32 kernels and paged decode
     # hold none
-    for name, key, n in (("flash_attention", "flash_wgmma_kernel", 3),
+    for name, key, n in (("flash_attention", "flash_wgmma_kernel", 4),
                          ("ssd_scan", "ssd_wgmma_kernel", 1)):
         wgmma = {fn: k for fn, k in counts[name].items() if key in fn}
         check(len(wgmma) == n and all(wgmma.values()),
@@ -1332,6 +1352,288 @@ def phase_cluster():
     return summary
 
 
+# ----------------------------------------------------------- gemma family
+# weight bytes of the port's specs, all layers (bf16 weights, f32 norm
+# scales), of the models served whole from here on
+WEIGHT_BYTES = {"gemma-2b": 5_012_496_384, "gemma3-4b": 7_760_238_592,
+                "paligemma-3b": 5_017_477_120, "gemma3-27b": 54_018_046_976}
+GEMMA2B_HEADS = (8, 1, 256)   # H, KV, head_dim of gemma-2b and paligemma-3b
+GEMMA34B_HEADS = (8, 4, 256)  # of gemma3-4b
+FAMILY_FLASH = ((8, 1024, *GEMMA2B_HEADS, 0), (4, 2048, *GEMMA34B_HEADS, 1024),
+                (4, 2048, *GEMMA34B_HEADS, 0))   # B, S, H, KV, d, window
+PALI_BUCKETS = (64, 256, 512)
+PALI_MAX_LEN = 1024
+PALI_PROMPTS = (12, 40, 64, 100, 180, 256, 300, 400, 480, 500)
+PALI_PATCH_STD = 0.02
+
+
+def check_kernels_d256(worst) -> dict:
+    """Flash and paged decode at head_dim 256 against their plain versions in
+    bf16 and f32: flash at gemma-2b's heads (B=8, S=1024, 8 over 1) and
+    gemma3-4b's (B=4, S=2048, 8 over 4, windows 1024 and 0), paged decode
+    at gemma-2b's decode step (B=8, ``PAGED_CTX``); then each timed in bf16
+    beside its bound, flash beside SDPA with the same mask, paged decode
+    held to one kernel a call."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    for B, S, H, KV, d, window in FAMILY_FLASH:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
+            k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            out = flash_ops.attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=True, window=window).transpose(1, 2)
+            err, ok = max_err(out, ref, TOL[("flash", dtype)])
+            del q, k, v, ref, out
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            what = f"B={B} S={S} H={H} KV={KV} d={d} window={window}"
+            log(f"[family] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
+            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
+    check_paged(*GEMMA2B_HEADS, gen, worst)
+    flash = {}
+    for B, S, H, KV, d, window in FAMILY_FLASH:
+        flash[f"B{B}_S{S}_KV{KV}_window_{window}"] = r = time_flash(
+            B, S, H, KV, d, gen, window=window)
+        log(f"[family] flash_attention timing bf16: {json.dumps(r)}")
+    paged = time_paged(*GEMMA2B_HEADS, gen, by_uniform_ctx=False)
+    log(f"[family] paged_attention timing bf16: {json.dumps(paged)}")
+    torch.cuda.empty_cache()
+    return {"flash": flash, "paged": paged}
+
+
+class FlashWindows:
+    """Tallies the window of every flash call the model makes, by wrapping
+    the model's reference to the wrapper (the wrapper's launch count is
+    left as it is)."""
+
+    def __enter__(self):
+        import repro_torch.models.lm as lm_mod
+
+        self.mod, self.real, self.by_window = lm_mod, lm_mod.flash_attention, {}
+
+        def flash(q, k, v, *, causal=True, window=0, scale=None):
+            self.by_window[window] = self.by_window.get(window, 0) + 1
+            return self.real(q, k, v, causal=causal, window=window, scale=scale)
+
+        lm_mod.flash_attention = flash
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.real
+
+
+def paged_path_logits(cfg, params, use_kernels: bool) -> list:
+    """Logits (f32) of every call, in the dtype of ``params``: a prefill of
+    4 right-padded prompts of 128, 100, 77 and 12 tokens (flash on the
+    kernel path), a paged chunked prefill of the same prompts, then 4 paged
+    decode steps (paged decode on the kernel path) fed the same drawn
+    tokens whatever the path."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import LM
+
+    m = LM(cfg, with_overrides(BASELINE, use_kernels=use_kernels))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    B, S, bs = 4, 128, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    feed = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen, device=DEV)
+    true_len = torch.tensor([128, 100, 77, 12], device=DEV)
+    max_blk = -(-(S + len(feed)) // bs)
+    table = torch.arange(B * max_blk, dtype=torch.int32, device=DEV).view(B, max_blk)
+    pools = P.init(None, m.paged_cache_specs(B * max_blk, bs), DEV)
+    out = [m.prefill(params, {"tokens": toks}, S, true_len=true_len)[0],
+           m.prefill_chunk_paged(params, toks, torch.zeros_like(true_len), true_len,
+                                 pools, table)[0]]
+    pos = true_len.clone()
+    for f in feed:
+        out.append(m.decode_step_paged(params, f, pos, pools, table)[0])
+        pos = pos + 1
+    out = [o.float() for o in out]
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
+    return out
+
+
+def vlm_path_logits(cfg, params, use_kernels: bool) -> list:
+    """Logits (f32) of every call, in the dtype of ``params``: a prefill of
+    4 right-padded prompts of 128, 100, 77 and 12 tokens behind seeded
+    patches (the plain attention on both paths, as in the reference: flash
+    has no prefix-LM mask), then 4 dense decode steps at positions that
+    count the prefix, fed the same drawn tokens whatever the path."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models.lm import LM
+
+    m = LM(cfg, with_overrides(BASELINE, use_kernels=use_kernels))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    B, S, prefix = 4, 128, cfg.num_vision_tokens
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    feed = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen, device=DEV)
+    patches = torch.randn((B, prefix, cfg.d_model), generator=gen,
+                          device=DEV) * PALI_PATCH_STD
+    true_len = torch.tensor([128, 100, 77, 12], device=DEV)
+    logits, caches = m.prefill(params, {"tokens": toks, "patches": patches},
+                               prefix + S + len(feed), true_len=true_len)
+    out = [logits]
+    pos = true_len + prefix
+    for f in feed:
+        logits, caches = m.decode_step(params, f, pos, caches)
+        out.append(logits)
+        pos = pos + 1
+    out = [o.float() for o in out]
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
+    return out
+
+
+def serve_vlm(cfg, params) -> dict:
+    """paligemma on the dense backend through ``InferenceEngine.submit`` (the
+    completions API carries no patches, as in the reference): 10 requests of
+    ``PALI_PROMPTS`` text tokens, 32 new each, every other one behind
+    seeded patches (1, 256, d_model) and the rest behind none (zeros); a
+    prompt one past the largest bucket must bounce, since a vision prefix
+    is never chunked."""
+    from repro_torch.serving import InferenceEngine, Request, SamplingParams, State
+
+    eng = InferenceEngine(cfg, params=params, capacity=8, max_len=PALI_MAX_LEN,
+                          buckets=PALI_BUCKETS, kv_backend="dense", seed=SEED,
+                          device=DEV)
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    over = Request(rid=99, prompt=[1] * (PALI_BUCKETS[-1] + 1))
+    check(not eng.submit(over, now=0.0) and over.state is State.REJECTED,
+          f"{cfg.name}: a prompt of {len(over.prompt)} tokens was not rejected")
+    reqs = []
+    for i, n in enumerate(PALI_PROMPTS):
+        extras = {}
+        if i % 2 == 0:
+            extras["patches"] = torch.randn((1, cfg.num_vision_tokens, cfg.d_model),
+                                            generator=gen, device=DEV) * PALI_PATCH_STD
+        reqs.append(Request(rid=i, prompt=[int(x) for x in rng.integers(0, cfg.vocab_size, n)],
+                            sampling=SamplingParams(max_new_tokens=32), extras=extras))
+        check(eng.submit(reqs[-1], now=0.0), f"{cfg.name}: request {i} rejected")
+    ops = kernel_ops()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in ops.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    t = 0.0
+    while eng.pending() and t < 400:
+        eng.step(now=t)
+        t += 1.0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = eng.history
+    stats = dict(
+        backend="dense", requests=len(eng.finished), steps=len(hist),
+        decode_steps=sum(1 for st in hist if st.tokens_out),
+        tokens_out=sum(len(r.output) for r in reqs),
+        prefill_tokens=sum(st.prefill_tokens for st in hist), wall_s=round(wall, 3),
+        prefill_s=round(sum(st.prefill_s for st in hist), 3),
+        decode_s=round(sum(st.decode_s for st in hist), 3),
+        peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        launches={name: m.launches for name, m in ops.items()},
+        bucket_groups=bucket_groups(eng),
+        chunk_steps=sum(1 for st in hist if st.chunk_rows))
+    log(f"[serve] {cfg.name} {json.dumps(stats)}")
+    for r in reqs:
+        check(len(r.output) == 32 and r.state is State.DONE,
+              f"{cfg.name}: request {r.rid} (prompt {len(r.prompt)}) got "
+              f"{len(r.output)} tokens, state {r.state}")
+        check(all(0 <= x < cfg.vocab_size for x in r.output),
+              f"{cfg.name}: request {r.rid} produced an out-of-vocab token")
+    check(stats["chunk_steps"] == 0, f"{cfg.name}: a vision request went chunked")
+    check(all(n == 0 for n in stats["launches"].values()),
+          f"{cfg.name}: a kernel ran on the vision path ({stats['launches']})")
+    return stats
+
+
+def load_whole(arch: str, tag: str):
+    """A model drawn whole on the card, its weight bytes checked."""
+    from repro_torch.models import params as P
+
+    t0 = time.perf_counter()
+    cfg, params = load_model(arch)
+    torch.cuda.synchronize()
+    nbytes = sum(t.nbytes for t in P.tree_leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, weight bytes {nbytes:,} drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    check(nbytes == WEIGHT_BYTES[arch], f"{cfg.name}: {nbytes} weight bytes")
+    return cfg, params
+
+
+def phase_gemma_family(worst):
+    """gemma-2b, gemma3-4b and paligemma-3b whole, one after another, each
+    freed before the next: flash and paged decode at head_dim 256 first,
+    then each model served, its decode step profiled against the
+    weight-read bound and its kernel path held to the plain path
+    (``compare_paths_deep``).  gemma-2b (MQA) on ``serve_traffic``, paged
+    then dense: 18 paged launches a decode step, 18 flash a prefill group.
+    gemma3-4b on ``gemma_traffic``, dense: 34 flash launches a group, window
+    1024 in its 29 local layers.  paligemma-3b (``serve_vlm``): no kernel."""
+    release()
+    t0 = time.perf_counter()
+    out = check_kernels_d256(worst)
+    launches = {name: 0 for name in kernel_ops()}
+    models = {}
+
+    def done(cfg, stats, prof, paths):
+        runs = stats if isinstance(stats, list) else [stats]
+        for st in runs:
+            for name, n in st["launches"].items():
+                launches[name] += n
+        models[cfg.name] = {"serve": runs, "decode_step": step_vs_bound(cfg, prof),
+                            "paths": paths}
+        log(f"[family] {cfg.name} {json.dumps({k: models[cfg.name][k] for k in ('decode_step', 'paths')})}")
+
+    cfg, params = load_whole("gemma-2b", "family")
+    buckets = (32, 64, 128)
+    runs = [serve(cfg, params, b, buckets, serve_traffic(cfg.vocab_size))
+            for b in ("paged", "dense")]
+    for st in runs:
+        check_exact_serve(cfg, st, st["backend"])
+    prof = profile_decode(cfg, params, "paged", buckets)
+    check(prof["paged_launches_per_step"] == cfg.num_layers,
+          f"{cfg.name}: {prof['paged_launches_per_step']} paged-decode launches "
+          f"per decode step, not {cfg.num_layers}")
+    done(cfg, runs, prof, compare_paths_deep(cfg, params, paged_path_logits, "family"))
+    del params
+    release()
+
+    cfg, params = load_whole("gemma3-4b", "family")
+    with FlashWindows() as fw:
+        stats = serve(cfg, params, "dense", GEMMA_BUCKETS, gemma_traffic(cfg.vocab_size),
+                      max_len=GEMMA_MAX_LEN)
+    check_gemma_serve(cfg, stats)
+    n_local = sum(cfg.layer_kind(i) == "attn_local" for i in range(cfg.num_layers))
+    groups = len(stats["bucket_groups"])
+    stats["flash_calls_by_window"] = fw.by_window
+    check(fw.by_window == {cfg.local_window: n_local * groups,
+                           0: (cfg.num_layers - n_local) * groups},
+          f"{cfg.name}: flash calls by window {fw.by_window} for {groups} groups")
+    prof = profile_decode(cfg, params, "dense", GEMMA_BUCKETS)
+    done(cfg, stats, prof, compare_paths_deep(cfg, params, gemma_path_logits, "family"))
+    del params
+    release()
+
+    cfg, params = load_whole("paligemma-3b", "family")
+    stats = serve_vlm(cfg, params)
+    prof = profile_decode(cfg, params, "dense", PALI_BUCKETS)
+    done(cfg, stats, prof, compare_paths_deep(cfg, params, vlm_path_logits, "family"))
+    del params
+    release()
+
+    out.update(launches=launches, models=models,
+               phase_s=round(time.perf_counter() - t0, 1))
+    log(f"[family] {json.dumps({'phase_s': out['phase_s'], 'launches': launches})}")
+    log(f"[family] {gpu_line()}")
+    return out
+
+
 # -------------------------------------------------------------------- moe
 MOE = "qwen3-moe-30b-a3b"
 # the reference's MoE bar (tests/test_kernels.py: bf16 noise can flip router
@@ -1342,7 +1644,11 @@ MOE_ERR_RATIO = 1.5           # deepest f32 depth: kernel vs plain, distance to 
 MOE_F32_MARGIN = 3e9          # device bytes left free beside the f32 copy
 
 
-def check_moe_serve(cfg, stats, backend: str):
+def check_exact_serve(cfg, stats, backend: str):
+    """Exact launch counts of a decoder served on ``serve_traffic``: paged
+    decode once a layer a decode step on the paged backend (and flash
+    never), flash once a layer a bucketed prefill group on the dense one
+    (and paged decode never)."""
     counts, steps, groups = stats["launches"], stats["decode_steps"], stats["bucket_groups"]
     check(stats["requests"] == 10, f"{cfg.name}: {stats['requests']} requests served")
     if backend == "paged":
@@ -1523,8 +1829,7 @@ def phase_moe():
     """qwen3-moe-30b-a3b at full width and depth, served on the paged and
     the dense backend, its decode step profiled, and its kernel path held
     to the plain path.  Runs last, after every other model is freed."""
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     log(f"[moe] device memory allocated before loading: "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     t0 = time.perf_counter()
@@ -1534,7 +1839,7 @@ def phase_moe():
     stats = {}
     for b in ("paged", "dense"):
         stats[b] = serve(cfg, params, b, buckets, serve_traffic(cfg.vocab_size))
-        check_moe_serve(cfg, stats[b], b)
+        check_exact_serve(cfg, stats[b], b)
     prof = profile_decode(cfg, params, "paged", buckets)
     check(prof["paged_launches_per_step"] == cfg.num_layers,
           f"{cfg.name}: {prof['paged_launches_per_step']} paged-decode launches "
@@ -1542,8 +1847,7 @@ def phase_moe():
     stats["decode_profile"] = prof
     stats["paths"] = compare_paths_moe(cfg, params)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     stats["launches"] = {name: stats["paged"]["launches"][name]
                          + stats["dense"]["launches"][name] for name in kernel_ops()}
     stats["phase_s"] = round(time.perf_counter() - t0, 1)
@@ -1555,7 +1859,6 @@ def phase_moe():
 
 # ----------------------------------------------------------------- gemma3
 GEMMA = "gemma3-27b"
-GEMMA_BYTES = 54_018_046_976  # bf16 weights of the port's specs, all 62 layers
 GEMMA_BUCKETS = (128, 512, 2048)
 GEMMA_MAX_LEN = 4096
 GEMMA_PROMPTS = (12, 100, 400, 1000, 1100, 1500, 2000, 2600, 3000, 3600)
@@ -1657,18 +1960,19 @@ def gemma_path_logits(cfg, params, use_kernels: bool) -> list:
     return out
 
 
-def compare_paths_gemma(cfg, params) -> dict:
-    """gemma3, the kernel path against the plain path on the same weights
-    (:func:`gemma_path_logits`): max |diff| / max |logits| per call, at
-    ``GEMMA_SHORT_DEPTH`` layers held to the bf16 and f32 bars; then at the
-    deepest depth whose f32 copy fits beside the bf16 weights, each bf16
-    path against the f32 plain path, the kernel path at most
-    ``GEMMA_ERR_RATIO`` times as far from it as the plain path."""
+def compare_paths_deep(cfg, params, path_logits, tag: str) -> dict:
+    """The kernel path against the plain path on the same weights
+    (``path_logits(cfg, params, use_kernels)``, e.g. :func:`gemma_path_logits`):
+    max |diff| / max |logits| per call, at ``GEMMA_SHORT_DEPTH`` layers held
+    to the bf16 and f32 bars; then at the deepest depth whose f32 copy fits
+    beside the bf16 weights, each bf16 path against the f32 plain path, the
+    kernel path at most ``GEMMA_ERR_RATIO`` times as far from it as the
+    plain path.  ``tag`` heads the log lines."""
     from repro_torch.models import params as P
 
     def run(depth, p, use_kernels):
-        return gemma_path_logits(dataclasses.replace(cfg, num_layers=depth),
-                                 dict(p, layers=p["layers"][:depth]), use_kernels)
+        return path_logits(dataclasses.replace(cfg, num_layers=depth),
+                           dict(p, layers=p["layers"][:depth]), use_kernels)
 
     def reads(a, b):
         return [rel(x, y) for x, y in zip(a, b)]
@@ -1684,7 +1988,7 @@ def compare_paths_gemma(cfg, params) -> dict:
         r = reads(run(d, p, True), run(d, p, False))
         del p
         torch.cuda.empty_cache()
-        log(f"[gemma3] {d} layers, {str(dtype)[6:]}: kernel vs plain logits rel per "
+        log(f"[{tag}] {d} layers, {str(dtype)[6:]}: kernel vs plain logits rel per "
             f"call {calls(r)} (bar {LOGIT_REL_TOL[dtype]})")
         check(max(r) <= LOGIT_REL_TOL[dtype],
               f"{cfg.name} kernel-path logits off by rel {max(r):.3e}, {d} layers {dtype}")
@@ -1703,7 +2007,7 @@ def compare_paths_gemma(cfg, params) -> dict:
     del p32
     torch.cuda.empty_cache()
     err = {"kernel": reads(ko, fo), "plain": reads(po, fo)}
-    log(f"[gemma3] bf16 paths vs the f32 plain path, {depth} layers (the deepest "
+    log(f"[{tag}] bf16 paths vs the f32 plain path, {depth} layers (the deepest "
         f"whose f32 copy fits beside the bf16 weights; {free / 1e9:.2f} GB were "
         f"free): rel per call kernel {calls(err['kernel'])}, plain "
         f"{calls(err['plain'])} (bar: kernel <= {GEMMA_ERR_RATIO} x plain)")
@@ -1722,45 +2026,40 @@ def phase_gemma3(worst):
     layers have no paged form) with flash windowed in its 52 local layers;
     flash first checked alone at its heads, the decode step profiled
     against the weight-read bound, the kernel path held to the plain path."""
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     log(f"[gemma3] device memory allocated before the phase: "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     t0 = time.perf_counter()
     flash_rows = check_flash_gemma(worst)
-    from repro_torch.models import params as P
-
-    cfg, params = load_model(GEMMA)
-    nbytes = sum(t.nbytes for t in P.tree_leaves(params))
-    log(f"[gemma3] {cfg.num_layers} layers, weight bytes {nbytes:,} drawn on the card "
-        f"in {time.perf_counter() - t0:.1f} s (with the flash checks)")
-    check(cfg.num_layers == 62 and nbytes == GEMMA_BYTES,
-          f"{cfg.name}: {cfg.num_layers} layers, {nbytes} weight bytes")
+    cfg, params = load_whole(GEMMA, "gemma3")
     stats = serve(cfg, params, "dense", GEMMA_BUCKETS, gemma_traffic(cfg.vocab_size),
                   max_len=GEMMA_MAX_LEN)
     check_gemma_serve(cfg, stats)
-    gc.collect()
-    torch.cuda.empty_cache()
-    prof = profile_decode(cfg, params, "dense", GEMMA_BUCKETS)
-    bound_ms, wbytes = weight_read_bound_ms(cfg)
-    dev_ms = prof["decode_step_device_ms"]
-    step = {"decode_step_device_ms": dev_ms,
-            "decode_step_wall_ms": prof["decode_step_wall_ms"],
-            "busy_share": prof["device_busy_share"],
-            "weight_bytes_read_once": wbytes, "step_bound_ms": round(bound_ms, 3),
-            "device_over_bound": (round(dev_ms / bound_ms, 3)
-                                  if isinstance(dev_ms, float) else "not measured"),
-            "wall_over_bound": round(prof["decode_step_wall_ms"] / bound_ms, 3)}
-    paths = compare_paths_gemma(cfg, params)
+    release()
+    step = step_vs_bound(cfg, profile_decode(cfg, params, "dense", GEMMA_BUCKETS))
+    paths = compare_paths_deep(cfg, params, gemma_path_logits, "gemma3")
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    release()
     out = {"launches": stats["launches"], "serve": stats, "decode_step": step,
            "paths": paths, "flash": flash_rows,
            "phase_s": round(time.perf_counter() - t0, 1)}
     log(f"[gemma3] {json.dumps({k: out[k] for k in ('phase_s', 'launches', 'decode_step', 'paths')})}")
     log(f"[gemma3] {gpu_line()}")
     return out
+
+
+def step_vs_bound(cfg, prof) -> dict:
+    """A profiled decode step (:func:`profile_decode`) beside the least time
+    it can take, every weight read once at 3.35 TB/s."""
+    bound_ms, wbytes = weight_read_bound_ms(cfg)
+    dev_ms = prof["decode_step_device_ms"]
+    return {"decode_step_device_ms": dev_ms,
+            "decode_step_wall_ms": prof["decode_step_wall_ms"],
+            "busy_share": prof["device_busy_share"],
+            "weight_bytes_read_once": wbytes, "step_bound_ms": round(bound_ms, 3),
+            "device_over_bound": (round(dev_ms / bound_ms, 3)
+                                  if isinstance(dev_ms, float) else "not measured"),
+            "wall_over_bound": round(prof["decode_step_wall_ms"] / bound_ms, 3)}
 
 
 def log_engine(prof, mamba) -> None:
@@ -1791,11 +2090,15 @@ def main() -> int:
         stats["mamba2"] = phase_mamba()
         log_engine(stats["decode_profile"], stats["mamba2"])
         stats["cluster"] = phase_cluster()
+        worst = {name: rows[name]["max_abs_err"] for name in rows}
+        stats["family"] = phase_gemma_family(worst)
         stats["moe"] = phase_moe()
-        worst = {"flash_attention": rows["flash_attention"]["max_abs_err"]}
         stats["gemma3"] = phase_gemma3(worst)
-        rows["flash_attention"]["max_abs_err"] = worst["flash_attention"]
+        for name, err in worst.items():
+            rows[name]["max_abs_err"] = err
         rows["flash_attention"]["gemma3"] = stats["gemma3"]["flash"]
+        rows["flash_attention"]["gemma_family"] = stats["family"]["flash"]
+        rows["paged_attention"]["gemma_family"] = stats["family"]["paged"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1804,6 +2107,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": stats[phase]["launches"][name],
                 "cluster_launches": stats["cluster"]["launches"][name],
+                "gemma_family_launches": stats["family"]["launches"][name],
                 "moe_launches": stats["moe"]["launches"][name],
                 "gemma3_launches": stats["gemma3"]["launches"][name],
                 **rows[name]}

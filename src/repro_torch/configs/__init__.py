@@ -11,6 +11,9 @@ _ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "gemma3-27b": "gemma3_27b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "gemma-2b": "gemma_2b",
+    "gemma3-4b": "gemma3_4b",
+    "paligemma-3b": "paligemma_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

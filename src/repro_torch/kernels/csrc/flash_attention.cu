@@ -10,9 +10,9 @@
 //
 // Two kernels, chosen by dtype alone.
 //
-// bf16: `flash_wgmma_kernel<D>`, D in {32, 64, 128}; a head dim d that is a
-// multiple of 16 runs in the smallest D >= d, TMA filling columns d..D with
-// zeros.  What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s), at qwen2's
+// bf16: `flash_wgmma_kernel<D>`, D in {32, 64, 128, 256}; a head dim d that
+// is a multiple of 16 runs in the smallest D >= d, TMA filling columns d..D
+// with zeros.  What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s), at qwen2's
 // heads (14 over 2, d = 64):
 //   * the serving engine's bucketed prefill, B = 4, S = 128: bytes, 2.1 MB
 //     against 118 MFLOP, 0.6 us.  That is far below one launch, so the call
@@ -44,22 +44,29 @@
 //     the output is a convex combination of V rows up to f32 rounding; each
 //     lane sums its own columns and the quad's sums meet once, at the end;
 //   * the epilogue writes O / max(l, 1e-30) as bf16 to shared memory and
-//     stores 16-byte rows to (B, Sq, H, d).
+//     stores 16-byte rows to (B, Sq, H, d);
+//   * D = 256 (gemma's heads) takes two warpgroups.  One warpgroup would hold
+//     a 64 x 256 f32 accumulator, 128 registers a thread beside S (32) and P
+//     (16), near the cap of 255.  Each of the two computes the same S and P
+//     (Q K^T twice, 1.5x the minimal tensor work) and its own 128 columns of
+//     O from its half of the V tile; shared memory is Q and two K/V stages,
+//     5 x 32 KB.
 //
-// f32: `flash_f32_kernel`, on the CUDA cores, which holds the reference's
+// f32: `flash_f32_kernel<BQ>`, on the CUDA cores, which holds the reference's
 // 2e-5 bar (TF32 tensor cores keep about 1e-3).  It serves the f32 logits
 // check and the tests, not the bf16 serving path: one warp owns a query row
 // at a time, a lane scores two keys and updates d / 32 output dims, with
-// q, k, v and the accumulator in f32 shared memory.
+// q, k, v and the accumulator in f32 shared memory; BQ = 64 query rows a
+// block up to d = 128 and 32 above, where 64 rows would not fit.
 
 #include "hopper.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
+constexpr int kBQ = 64;       // query rows per block (f32 at d > 128: 32)
 constexpr int kBK = 64;       // keys per tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr int kStages = 2;    // K/V tiles in flight (bf16 kernel)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -67,11 +74,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kF32Warps = 4;
 
-size_t f32_smem(int d) {
+// K (padded rows), V, then BQ rows of Q and of the accumulator: 263,936 B at
+// BQ = 64 and d = 256, over the 232,448 a block may have, so d > 128 takes
+// BQ = 32 (198,144 B)
+size_t f32_smem(int bq, int d) {
   return sizeof(float) * ((size_t)kBK * (d + 1) + (size_t)kBK * d +
-                          2 * (size_t)kBQ * d + 2 * kBQ + kF32Warps * kBK);
+                          2 * (size_t)bq * d + 2 * bq + kF32Warps * kBK);
 }
 
+template <int BQ>
 __global__ void __launch_bounds__(kF32Warps * 32) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,  // (B, Sq, H, d)
@@ -84,11 +95,11 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_f32_kernel(
   const int dk = d + 1;                  // padded key rows: no bank conflicts
   float* k_s = smem;                     // kBK * dk
   float* v_s = k_s + kBK * dk;           // kBK * d
-  float* q_s = v_s + kBK * d;            // kBQ * d, pre-scaled
-  float* acc_s = q_s + kBQ * d;          // kBQ * d
-  float* m_s = acc_s + kBQ * d;          // kBQ
-  float* l_s = m_s + kBQ;                // kBQ
-  float* p_s = l_s + kBQ;                // kF32Warps * kBK
+  float* q_s = v_s + kBK * d;            // BQ * d, pre-scaled
+  float* acc_s = q_s + BQ * d;           // BQ * d
+  float* m_s = acc_s + BQ * d;           // BQ
+  float* l_s = m_s + BQ;                 // BQ
+  float* p_s = l_s + BQ;                 // kF32Warps * kBK
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -96,21 +107,21 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_f32_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int g = h / (H / KV);
-  const int q_lo = blockIdx.x * kBQ;
-  const int n_rows = min(kBQ, Sq - q_lo);
+  const int q_lo = blockIdx.x * BQ;
+  const int n_rows = min(BQ, Sq - q_lo);
   const int off = Skv - Sq;              // absolute position of query row 0
 
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + g * ksh;
   const float* vb = v + b * vsb + g * vsh;
 
-  for (int e = tid; e < kBQ * d; e += blockDim.x) {
+  for (int e = tid; e < BQ * d; e += blockDim.x) {
     const int r = e / d;
     const int dd = e - r * d;
     q_s[e] = r < n_rows ? qb[(q_lo + r) * qss + dd] * scale : 0.f;
     acc_s[e] = 0.f;
   }
-  for (int r = tid; r < kBQ; r += blockDim.x) {
+  for (int r = tid; r < BQ; r += blockDim.x) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
   }
@@ -190,17 +201,19 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_f32_kernel(
   }
 }
 
+template <int BQ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int Sq, int Skv, int H, int KV, int d,
                        const long long* st, float scale, int causal,
                        int window, cudaStream_t stream) {
-  // once per process: the largest request, that of d = kMaxD
+  // once per process: the largest request of the instance, that of its
+  // largest d (128 at BQ = 64, kMaxD at BQ = 32)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)f32_smem(kMaxD));
+      flash_f32_kernel<BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)f32_smem(BQ, BQ == kBQ ? 128 : kMaxD));
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_f32_kernel<<<grid, kF32Warps * 32, f32_smem(d), stream>>>(
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_f32_kernel<BQ><<<grid, kF32Warps * 32, f32_smem(BQ, d), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, KV,
       d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
@@ -219,6 +232,12 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t b
 
 template <int D>
 struct Tiles {
+  // consumer warpgroups: at D = 256 two, each computing the same S and P
+  // and its own half of O's columns, so a thread holds 64 accumulators, not
+  // 128 beside S and P (Q K^T is computed twice)
+  static constexpr int kWG = D > 128 ? 2 : 1;
+  static constexpr int kDW = D / kWG;                   // O columns per warpgroup
+  static constexpr int kThreads = 128 * kWG;
   static constexpr int kSwE = D < 64 ? D : 64;          // elements per swizzled row
   static constexpr int kSwB = 2 * kSwE;                 // its bytes: 64 or 128
   static constexpr int kChunks = D / kSwE;              // TMA boxes per tile
@@ -231,7 +250,7 @@ struct Tiles {
 };
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_wgmma_kernel(
+__global__ void __launch_bounds__(Tiles<D>::kThreads) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
@@ -250,7 +269,8 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int warp = (tid >> 5) & 3;         // within its warpgroup: 16 rows
+  const int wg = tid >> 7;                 // warpgroup: O columns wg * kDW ..
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int g = h / (H / KV);
@@ -293,9 +313,10 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
   // columns 8 i + cq and 8 i + cq + 1 of every 8-column block i
   const int r0 = warp * 16 + (lane >> 2);
   const int cq = 2 * (lane & 3);
-  float o[D / 2];
+  constexpr int kO = T::kDW / 2;           // accumulators a thread
+  float o[kO];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg};
   float l[2] = {0.f, 0.f};                 // this lane's share of the row sums
 
@@ -369,18 +390,19 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
         pa[kk][mm] = *reinterpret_cast<const uint32_t*>(&p);
       }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kO; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-    // O += P V
-    fence_regs<D / 2>(o);
+    // O += P V, this warpgroup's columns of V
+    const uint32_t v_cols = v_s(s) + wg * (T::kDW / T::kSwE) * T::kChunkBytes;
+    fence_regs<kO>(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o, pa[kk], smem_desc(v_s(s) + kk * 16 * T::kSwB,
-                                       T::kChunkBytes, 8 * T::kSwB, T::kLayout));
+      wgmma_pv<T::kDW>(o, pa[kk], smem_desc(v_cols + kk * 16 * T::kSwB,
+                                            T::kChunkBytes, 8 * T::kSwB, T::kLayout));
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs<D / 2>(o);
+    fence_regs<kO>(o);
     __syncthreads();                       // stage s is free for tile j + kStages
   }
 
@@ -394,14 +416,16 @@ __global__ void __launch_bounds__(128) flash_wgmma_kernel(
     den[jr] = fmaxf(l[jr], kDenomFloor);
   }
   constexpr int kPitch = D + 8;            // elements; 16-byte rows, few bank conflicts
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw + (k_s(0) - raw));
+  __nv_bfloat16* stage =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + (k_s(0) - raw)) + wg * T::kDW;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < T::kDW / 8; ++i)
 #pragma unroll
     for (int jr = 0; jr < 2; ++jr)
       *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * jr) * kPitch + 8 * i + cq) =
           __floats2bfloat162_rn(o[4 * i + 2 * jr] / den[jr], o[4 * i + 2 * jr + 1] / den[jr]);
   __syncthreads();
+  stage -= wg * T::kDW;
   const int per_row = d / 8;               // 16-byte pieces of a row of d
   __nv_bfloat16* ob = out + (((size_t)b * Sq + q_lo) * H + h) * d;
   for (int e = tid; e < n_rows * per_row; e += blockDim.x) {
@@ -428,7 +452,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       (int)T::kSmem);
   if (attr != cudaSuccess) return attr;
   dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<D><<<grid, 128, T::kSmem, stream>>>(
+  flash_wgmma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV, d, scale,
       causal, window);
   return cudaGetLastError();
@@ -439,7 +463,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 // strides: q (b, s, h), k (b, s, h), v (b, s, h) in elements; the last dim
 // is contiguous.  bf16 needs d % 16 == 0, 16-byte aligned bases and strides
-// that are multiples of 8 (TMA); f32 takes any d <= 128.  Returns
+// that are multiples of 8 (TMA); f32 takes any d <= 256.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
@@ -455,11 +479,15 @@ extern "C" int flash_attention_launch(
   if (Skv == 0)                             // no keys: every row is 0
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * d * (dtype == kF32 ? 4 : 2), s);
   if (dtype == kF32)
-    return (int)launch_f32(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+    return d <= 128
+        ? (int)launch_f32<kBQ>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s)
+        : (int)launch_f32<kBQ / 2>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
   if (dtype != kBF16 || d % 16 != 0) return (int)cudaErrorInvalidValue;
   if (d <= 32)
     return (int)launch_wgmma<32>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
   if (d <= 64)
     return (int)launch_wgmma<64>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
-  return (int)launch_wgmma<128>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+  if (d <= 128)
+    return (int)launch_wgmma<128>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
+  return (int)launch_wgmma<256>(q, k, v, out, B, Sq, Skv, H, KV, d, st, scale, causal, window, s);
 }

@@ -31,7 +31,8 @@
 //     are both in flight from the start, one barrier per stage: the second
 //     stage's copy runs under the first stage's math.  Rows that are not
 //     live arrive as zeros (cp.async with no source bytes) and are masked;
-//   * each token row is read by a group of lanes, 16 bytes a lane, so a
+//   * each token row is read by a group of lanes, 16 bytes a lane (32 in
+//     f32 at d = 256, where a row of 64 copies would pass a warp), so a
 //     dot product is a few FMAs a lane and log2(group) shuffles; every lane
 //     group keeps its own online softmax (max, sum, accumulator) in f32
 //     registers, and the groups, then the warps, merge at the end of the
@@ -99,17 +100,24 @@ __device__ __forceinline__ void merge_ml(float& m, float& l, float m2, float l2,
   m = m_new;
 }
 
-// D: the instance's head dim (32, 64, 128); a smaller d runs with the lanes
-// past it idle.  E elements of 16 bytes per lane, LT lanes per token row.
+// D: the instance's head dim (32, 64, 128, 256); a smaller d runs with the
+// lanes past it idle.  A token row is CPR copies of 16 bytes (E elements
+// each).  It is read by LT <= 32 lanes, V vectors of 16 bytes a lane (V = 2
+// only for f32 at D = 256, whose 64 copies would not fit a warp otherwise),
+// EL elements a lane; a warp pass reads TPW token rows.
 template <typename TQ, typename TKV, int D>
 struct Geo {
   static constexpr int E = 16 / sizeof(TKV);
-  static constexpr int LT = D / E;
+  static constexpr int CPR = D / E;                      // 16-byte copies per row
+  static constexpr int V = CPR > 32 ? CPR / 32 : 1;      // vectors per lane
+  static constexpr int LT = CPR / V;                     // lanes per token row
+  static constexpr int EL = E * V;                       // elements per lane
   static constexpr int TPW = 32 / LT;                    // token rows per warp pass
   static constexpr int kStageElems = kStageTok * D;      // of K (and of V)
   static constexpr size_t kSmem = 2 * 2 * kStageElems * sizeof(TKV) +  // K, V x 2 stages
                                   2 * kStageTok * sizeof(int) +        // live flags
                                   kWarps * kRep * (D + 2) * sizeof(float) + 16;
+  static_assert(LT <= 32 && 32 % LT == 0, "a token row must fit one warp");
 };
 
 template <typename TQ, typename TKV, int D>
@@ -125,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     float* __restrict__ part_acc,          // (B, KV * n_hg, n_split, kRep, d)
     int H, int KV, int d, int bs, int max_blk, float scale) {
   using G = Geo<TQ, TKV, D>;
-  constexpr int E = G::E, LT = G::LT, TPW = G::TPW;
+  constexpr int E = G::E, CPR = G::CPR, V = G::V, LT = G::LT, EL = G::EL, TPW = G::TPW;
   extern __shared__ __align__(16) unsigned char smem[];
   TKV* k_s = reinterpret_cast<TKV*>(smem);                 // [stage][token][D]
   TKV* v_s = k_s + 2 * G::kStageElems;
@@ -144,10 +152,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int nh = min(kRep, g * rep + rep - h0);
   const int n_split = gridDim.z;
 
-  // this thread's token rows of both stages (chunks e = tid + k kThreads
-  // of a stage, LT chunks a row): their table entries are read together
+  // this thread's token rows of both stages (copies e = tid + k kThreads
+  // of a stage, CPR copies a row): their table entries are read together
   // with the context, before it is known
-  constexpr int kRows = kStageTok * LT / kThreads;
+  constexpr int kRows = kStageTok * CPR / kThreads;
   const int tid = threadIdx.x;
   const int t0 = s * kSplitTok;
   const int32_t* tb = table + (size_t)b * max_blk;
@@ -156,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int st = 0; st < 2; ++st)
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
-      const int pos = t0 + st * kStageTok + (tid + k * kThreads) / LT;
+      const int pos = t0 + st * kStageTok + (tid + k * kThreads) / CPR;
       blk[st][k] = pos < max_blk * bs ? tb[pos / bs] : -1;
     }
   const int ctx = ctx_len[b];
@@ -172,8 +180,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gi = lane / LT;                // this lane's token row in a pass
-  const int c = lane % LT;                 // and its 16-byte column chunk
-  const bool c_ok = c * E < d;
+  const int c = lane % LT;                 // and its EL columns from c * EL
   const int n_stages = min(kSplitTok / kStageTok, (limit - t0 + kStageTok - 1) / kStageTok);
   const size_t tok_stride = (size_t)KV * d;
 
@@ -182,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
       const int e = tid + k * kThreads;
-      const int t = e / LT;
-      const int cc = e % LT;
+      const int t = e / CPR;
+      const int cc = e % CPR;
       const int pos = t0 + st * kStageTok + t;
       const int bk = blk[st][k];
       const bool live = pos < limit && bk >= 0;
@@ -203,19 +210,20 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   // this lane's columns of the block's query heads, pre-scaled, in f32;
   // heads past nh compute on zeros and are never stored, so every head's
   // chain of shuffles and exponentials interleaves with the others'
-  float qv[kRep][E];
+  float qv[kRep][EL];
 #pragma unroll
   for (int r = 0; r < kRep; ++r)
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      qv[r][e] = (r < nh && c_ok) ? to_f32(q[((size_t)b * H + h0 + r) * d + c * E + e]) * scale : 0.f;
-  float m[kRep], l[kRep], acc[kRep][E];
+    for (int e = 0; e < EL; ++e)
+      qv[r][e] = (r < nh && c * EL + e < d)
+                     ? to_f32(q[((size_t)b * H + h0 + r) * d + c * EL + e]) * scale : 0.f;
+  float m[kRep], l[kRep], acc[kRep][EL];
 #pragma unroll
   for (int r = 0; r < kRep; ++r) {
     m[r] = kNeg;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < EL; ++e) acc[r][e] = 0.f;
   }
 
   for (int st = 0; st < n_stages; ++st) {
@@ -225,16 +233,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int pass = 0; pass < kStageTok / (kWarps * TPW); ++pass) {
       const int t = pass * kWarps * TPW + warp * TPW + gi;
-      float kf[E], vf[E];
-      load16(k_s + st * G::kStageElems + t * D + c * E, kf);
-      load16(v_s + st * G::kStageElems + t * D + c * E, vf);
+      float kf[EL], vf[EL];
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        load16(k_s + st * G::kStageElems + t * D + c * EL + u * E, kf + u * E);
+        load16(v_s + st * G::kStageElems + t * D + c * EL + u * E, vf + u * E);
+      }
       const bool live = live_s[st * kStageTok + t];
       float dot[kRep];
 #pragma unroll
       for (int r = 0; r < kRep; ++r) {
         dot[r] = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) dot[r] += qv[r][e] * kf[e];
+        for (int e = 0; e < EL; ++e) dot[r] += qv[r][e] * kf[e];
       }
 #pragma unroll
       for (int o = LT / 2; o > 0; o >>= 1)
@@ -249,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         const float p = expf(sc - m_safe);
         l[r] = l[r] * alpha + p;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = acc[r][e] * alpha + p * vf[e];
+        for (int e = 0; e < EL; ++e) acc[r][e] = acc[r][e] * alpha + p * vf[e];
         m[r] = m_new;
       }
     }
@@ -265,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       float a1, a2;
       merge_ml(m[r], l[r], m2, l2, a1, a2);
 #pragma unroll
-      for (int e = 0; e < E; ++e)
+      for (int e = 0; e < EL; ++e)
         acc[r][e] = acc[r][e] * a1 + __shfl_xor_sync(0xffffffffu, acc[r][e], o) * a2;
     }
   }
@@ -273,9 +284,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int r = 0; r < kRep; ++r) {
       if (r >= nh) continue;
-      if (c_ok)
 #pragma unroll
-        for (int e = 0; e < E; ++e) wacc_s[(warp * kRep + r) * D + c * E + e] = acc[r][e];
+      for (int e = 0; e < EL; ++e) wacc_s[(warp * kRep + r) * D + c * EL + e] = acc[r][e];
       if (c == 0) {
         wml_s[(warp * kRep + r) * 2] = m[r];
         wml_s[(warp * kRep + r) * 2 + 1] = l[r];
@@ -387,7 +397,9 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp, const void* 
     return launch<TQ, TKV, 32>(q, kp, vp, table, ctx, out, counter, ml, acc, B, H, KV, d, bs, max_blk, n_split, scale, s);
   if (d <= 64)
     return launch<TQ, TKV, 64>(q, kp, vp, table, ctx, out, counter, ml, acc, B, H, KV, d, bs, max_blk, n_split, scale, s);
-  return launch<TQ, TKV, 128>(q, kp, vp, table, ctx, out, counter, ml, acc, B, H, KV, d, bs, max_blk, n_split, scale, s);
+  if (d <= 128)
+    return launch<TQ, TKV, 128>(q, kp, vp, table, ctx, out, counter, ml, acc, B, H, KV, d, bs, max_blk, n_split, scale, s);
+  return launch<TQ, TKV, 256>(q, kp, vp, table, ctx, out, counter, ml, acc, B, H, KV, d, bs, max_blk, n_split, scale, s);
 }
 
 }  // namespace
@@ -396,7 +408,7 @@ cudaError_t launch_d(const void* q, const void* kp, const void* vp, const void* 
 // Scratch, one allocation: `counter` B * KV * n_hg int32 that are 0 before
 // the first call (each call leaves them 0), `part_ml` and `part_acc` f32 of
 // B * KV * n_hg * n_split * 8 * 2 and * d, where n_hg = ceil((H / KV) / 8)
-// and n_split = ceil(max_blk * bs / 64).  d <= 128 and the pool's rows of
+// and n_split = ceil(max_blk * bs / 64).  d <= 256 and the pool's rows of
 // 16 bytes' multiple (d % 8 in bf16, d % 4 in f32), 16-byte aligned pools.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int paged_attention_launch(
@@ -407,7 +419,7 @@ extern "C" int paged_attention_launch(
   using namespace repro;
   if (B == 0) return 0;
   const int kv_size = kv_dtype == kF32 ? 4 : 2;
-  if (H % KV != 0 || d > 128 || (d * kv_size) % 16 != 0 ||
+  if (H % KV != 0 || d > 256 || (d * kv_size) % 16 != 0 ||
       n_split * kSplitTok < max_blk * bs)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -46,8 +46,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     code = build.dtype_code(q)
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported")
+    if d > 256:
+        raise ValueError(f"head_dim {d} > 256 is not supported")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k, v must be contiguous")
     st = _strides(q) + _strides(k) + _strides(v)

@@ -38,7 +38,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, context_len, *,
     """q (B,H,d); pools (num_blocks, bs, KV, d); block_table (B, max_blk)
     int32, -1 = unmapped; context_len (B,) int32 -> (B,H,d) in q.dtype.
 
-    On the GPU: one launch, d <= 128 with rows of a multiple of 16 bytes
+    On the GPU: one launch, d <= 256 with rows of a multiple of 16 bytes
     (d % 8 in bf16, d % 4 in f32) and 16-byte aligned pools.  Calls that
     share a device must not run concurrently on two streams: they share the
     scratch of their shape."""
@@ -65,9 +65,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, context_len, *,
     if k_pages.dtype != v_pages.dtype:
         raise TypeError("k and v pools must share a dtype")
     kv_code = build.dtype_code(k_pages)
-    if d > 128 or d * k_pages.element_size() % 16 \
+    if d > 256 or d * k_pages.element_size() % 16 \
             or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"paged_decode_attention: head_dim {d} must be <= 128 "
+        raise ValueError(f"paged_decode_attention: head_dim {d} must be <= 256 "
                          "with 16-byte rows, and the pools 16-byte aligned")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention takes contiguous tensors")

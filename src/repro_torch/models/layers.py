@@ -1,7 +1,8 @@
 """Functional layers of the port: the subset of the reference's
-``models/layers.py`` that dense GQA decoders (qwen2), MoE decoders with
-q/k RMSNorm (qwen3-moe) and windowed decoders with ring KV caches (gemma3,
-mixtral) run.
+``models/layers.py`` that dense GQA decoders (qwen2, gemma), MoE decoders
+with q/k RMSNorm (qwen3-moe), windowed decoders with ring KV caches
+(gemma3, mixtral) and a vision prefix under a prefix-LM mask (paligemma)
+run.
 
 Conventions follow the reference: activations in the parameter dtype,
 softmax and norm statistics in f32, attention scores accumulated in f32
@@ -138,11 +139,14 @@ def _mha_chunk(q, k, v, mask, scale):
 
 
 def attention_full(q, k, v, *, causal: bool, window: int = 0,
-                   scale: float | None = None, q_chunk: int = 512):
+                   prefix_len: int = 0, scale: float | None = None,
+                   q_chunk: int = 512):
     """Attention over full sequences (prefill), the queries in slices of
     ``q_chunk``, each slice one masked :func:`_mha_chunk` over every key:
     a query row's softmax is its own, so the slicing changes no number and
-    bounds the f32 scores to (B, heads, q_chunk, Skv).
+    bounds the f32 scores to (B, heads, q_chunk, Skv).  The first
+    ``prefix_len`` positions (a vision prefix) see each other both ways:
+    the prefix-LM mask.
 
     q: (B,Sq,H,d); k,v: (B,Skv,KV,d), q positions == kv positions."""
     Sq, d = q.shape[1], q.shape[-1]
@@ -157,6 +161,8 @@ def attention_full(q, k, v, *, causal: bool, window: int = 0,
             mask = kpos <= qpos
             if window:
                 mask &= kpos > qpos - window
+            if prefix_len:
+                mask |= (qpos < prefix_len) & (kpos < prefix_len)
             mask = mask[None]
         outs.append(_mha_chunk(q[:, q0:q1], k, v, mask, scale))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]

@@ -1,7 +1,9 @@
-"""Decoder-only LM of the port: dense global-attention decoders (qwen2),
-MoE decoders with q/k RMSNorm (qwen3-moe), windowed decoders (gemma3's
-local and global layers, mixtral's uniform sliding window) and
-attention-free SSM decoders (mamba2).
+"""Decoder-only LM of the port: dense global-attention decoders (qwen2,
+gemma-2b), MoE decoders with q/k RMSNorm (qwen3-moe), windowed decoders
+(gemma3's local and global layers, mixtral's uniform sliding window),
+attention-free SSM decoders (mamba2) and a vision-language decoder whose
+prompt opens with precomputed patch embeddings under a prefix-LM mask
+(paligemma).
 
 The reference runs a ``lax.scan`` over stacked layer groups; here the trunk
 is a plain loop over ``params["layers"]``, one dict per layer.  Caches are
@@ -19,6 +21,8 @@ Modes:
   paged_chunk   chunked prefill appending into paged pools
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,8 +43,6 @@ def _unsupported(cfg: ModelConfig) -> str | None:
         return f"MoE layers in a {cfg.family} model"
     if cfg.family == "hybrid" or cfg.attn_every:
         return "hybrid attention/SSM"
-    if cfg.num_vision_tokens or cfg.family == "vlm":
-        return "vision"
     if cfg.is_encoder_decoder or cfg.family == "encdec":
         return "enc-dec"
     if cfg.mlp_activation not in ("silu", "gelu"):
@@ -93,11 +95,12 @@ class LM:
                 for k in self.kinds]
 
     def supports_paged(self) -> bool:
-        """Paged KV serving covers decoders whose every layer is global
-        attention.  SSM state is per row (nothing to page) and ring layers
-        keep their own slot positions: the engine keeps the dense backend
-        for those."""
-        return set(self.kinds) == {"attn"} and self.cfg.window_for("attn") == 0
+        """Paged KV serving covers text decoders whose every layer is global
+        attention.  SSM state is per row (nothing to page), ring layers
+        keep their own slot positions and a vision prefix pins the
+        sequence's layout: the engine keeps the dense backend for those."""
+        return (not self.cfg.num_vision_tokens and set(self.kinds) == {"attn"}
+                and self.cfg.window_for("attn") == 0)
 
     def paged_cache_specs(self, num_blocks: int, block_size: int) -> list:
         """Per-layer paged pools, indexed through one shared block table."""
@@ -117,7 +120,7 @@ class LM:
         return cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
 
     def _attend(self, p, h, kind, *, mode, positions, cache, pos, max_len,
-                true_len, block_table, live, slots, angles):
+                true_len, block_table, live, slots, angles, prefix_len):
         # imported here: repro_torch.serving imports the engine, which
         # imports this module
         from repro_torch.serving.kv_cache import (paged_gather, paged_write,
@@ -172,10 +175,13 @@ class LM:
             new_cache = L.cache_write_chunk(cache, k, v, pos, true_len,
                                             ring=ring, slots=slots)
         else:  # prefill
-            if perf.use_kernels:
+            # flash has no prefix-LM mask: a vision prefix takes the plain
+            # path, as in the reference
+            if perf.use_kernels and prefix_len == 0:
                 ctx = flash_attention(q, k, v, causal=True, window=window)
             else:
                 ctx = L.attention_full(q, k, v, causal=True, window=window,
+                                       prefix_len=prefix_len,
                                        q_chunk=perf.q_chunk)
             specs = L.kv_cache_specs(cfg, h.shape[0], self._cache_len(kind, max_len),
                                      ring=ring)
@@ -227,7 +233,8 @@ class LM:
         return out
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
-               max_len=0, true_len=None, block_table=None, live=None):
+               max_len=0, true_len=None, block_table=None, live=None,
+               prefix_len=0):
         """Run every layer; returns (x, new caches, the MoE layers' summed aux
         loss), as the reference's trunk does.  Serving ignores aux."""
         cfg = self.cfg
@@ -251,7 +258,7 @@ class LM:
                     p["mixer"], h, kind, mode=mode, positions=positions,
                     cache=cache, pos=pos, max_len=max_len, true_len=true_len,
                     block_table=block_table, live=live, slots=slots[i],
-                    angles=angles[self._theta(kind)])
+                    angles=angles[self._theta(kind)], prefix_len=prefix_len)
             new_caches.append(nc)
             x = x + mix
             if self.moes[i]:
@@ -268,22 +275,40 @@ class LM:
         x_last = x[rows, idx.long()][:, None]
         return L.unembed_logits(params["embed"], x_last, self.cfg)[:, 0]
 
+    def _embed_inputs(self, params, batch):
+        """tokens, and a vlm's patches (B, num_vision_tokens, d_model) put
+        before them -> (x, positions, prefix_len).  The patches are cast to
+        the activations' dtype and, like the token embeddings, scaled by
+        sqrt(d_model) under ``scale_embed``."""
+        cfg = self.cfg
+        x = L.embed_apply(params["embed"], batch["tokens"], cfg)
+        prefix = 0
+        if cfg.num_vision_tokens:
+            patches = batch["patches"].to(x.dtype)
+            if cfg.scale_embed:
+                patches = patches * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            prefix = cfg.num_vision_tokens
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return x, positions, prefix
+
     # ------------------------------------------------------------- public
     def prefill(self, params, batch, max_len: int, true_len=None):
         """Full-sequence prefill.  Returns (last-token logits (B,V) f32, fresh
         per-layer caches: KV of length ``max_len``, SSM state).  ``true_len``
-        (B,) counts the valid tokens of right-padded rows; logits come from
-        the last one, and SSM state stops there."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = L.embed_apply(params["embed"], tokens, self.cfg)
-        positions = torch.arange(S, device=tokens.device)[None, :]
+        (B,) counts the valid text tokens of right-padded rows; logits come
+        from the last one, and SSM state stops there.  Positions, and the
+        caches, count a vision prefix first."""
+        B = batch["tokens"].shape[0]
+        x, positions, prefix = self._embed_inputs(params, batch)
+        abs_len = None if true_len is None else true_len + prefix
         x, caches, _ = self._trunk(params, x, mode="prefill", positions=positions,
-                                   max_len=max_len, true_len=true_len)
-        if true_len is None:
-            idx = torch.full((B,), S - 1, device=tokens.device)
+                                   max_len=max_len, true_len=abs_len,
+                                   prefix_len=prefix)
+        if abs_len is None:
+            idx = torch.full((B,), x.shape[1] - 1, device=x.device)
         else:
-            idx = (true_len.long() - 1).clamp(min=0)
+            idx = (abs_len.long() - 1).clamp(min=0)
         return self._last_logits(params, x, idx), caches
 
     def _chunk_positions(self, tokens, pos0):
@@ -296,7 +321,8 @@ class LM:
         tokens (B,C) right-padded; pos0 (B,) absolute start positions;
         n_valid (B,) valid tokens per row — 0 marks an idle row, whose cache
         is left untouched.  Returns (logits (B,V) f32 at each row's last
-        valid chunk position, caches)."""
+        valid chunk position, caches).  Text positions only: a vision
+        prefix is never chunked (the engine keeps vlm prompts bucketed)."""
         x = L.embed_apply(params["embed"], tokens, self.cfg)
         x, caches, _ = self._trunk(params, x, mode="chunk",
                                    positions=self._chunk_positions(tokens, pos0),

@@ -100,6 +100,9 @@ class InferenceEngine:
         self.max_len = max_len
         self.buckets = tuple(sorted(buckets))
         self.chunk = self.buckets[-1]       # chunked-prefill slice length
+        # chunked prefill appends at text positions: a vision prefix (or an
+        # encoder) keeps its requests bucketed
+        self._can_chunk = not (cfg.is_encoder_decoder or cfg.num_vision_tokens)
         self.paged = kv_backend == "paged" and self.model.supports_paged()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -289,8 +292,12 @@ class InferenceEngine:
     # ------------------------------------------------------------- interface
     def submit(self, req: Request, now: float | None = None) -> bool:
         now = time.perf_counter() if now is None else now
-        if len(req.prompt) > self.max_len - 1:
-            # served-or-rejected, never a crash
+        limit = self.max_len - 1 - (self.cfg.num_vision_tokens or 0)
+        if not self._can_chunk:
+            limit = min(limit, self.buckets[-1])
+        if len(req.prompt) > limit:
+            # served-or-rejected, never a crash: a prompt that cannot fit a
+            # cache row, or cannot be chunked on this family, bounces here
             req.state = State.REJECTED
             self.rejected_long += 1
             self._trace_reject(req, now, "prompt-too-long")
@@ -364,9 +371,18 @@ class InferenceEngine:
             rows.append(row)
             toks[i, : len(req.prompt)] = req.prompt
             true[i] = len(req.prompt)
+        batch = {"tokens": self._t(toks)}
+        prefix = self.cfg.num_vision_tokens or 0
+        if prefix:
+            # a request's patches (1, prefix, d_model), zeros where it has none
+            patches = torch.zeros((G, prefix, self.cfg.d_model), dtype=torch.float32,
+                                  device=self.device)
+            for i, req in enumerate(reqs):
+                if "patches" in req.extras:
+                    patches[i] = torch.as_tensor(req.extras["patches"])[0]
+            batch["patches"] = patches
         logits, row_caches = self.model.prefill(
-            self.params, {"tokens": self._t(toks)}, self.max_len,
-            true_len=self._t(true))
+            self.params, batch, self.max_len, true_len=self._t(true))
         self._insert_rows(row_caches, rows)
         sampled = self._sample(
             logits,
@@ -380,7 +396,7 @@ class InferenceEngine:
             req.t_first_token = now
             req.token_times.append(now)
             req.state = State.DECODE
-            self.pos[row] = len(req.prompt)
+            self.pos[row] = len(req.prompt) + prefix
             self.tokens[row, 0] = t
             self._set_row_sampling(row, req)
             self.row_req[row] = req
@@ -765,12 +781,15 @@ class InferenceEngine:
             elif n <= self.buckets[-1]:
                 groups.setdefault(_round_bucket(n, self.buckets), []).append(req)
                 admitted += 1
-            else:
+            elif self._can_chunk:
                 row = self._admit_chunked(req, now)
                 rows_n[row] = min(self.chunk, n)
                 prefill_tokens += rows_n[row]
                 prefill_padded += self.chunk
                 admitted += 1
+            else:  # submit() bounces these; a request queued otherwise too
+                req.state = State.REJECTED
+                self.rejected_long += 1
         for bucket in sorted(groups):
             prefill_tokens += self._admit_batch(groups[bucket], bucket, now)
             prefill_padded += bucket * len(groups[bucket])

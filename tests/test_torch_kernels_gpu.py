@@ -191,9 +191,13 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         paged_ops.paged_decode_attention(q.float(), pool.float(), pool.float(),
                                          tbl.long(), ctx)
-    x = torch.zeros((1, 8, 2, 256), device="cuda")
-    with pytest.raises(ValueError):
+    x = torch.zeros((1, 8, 2, 272), device="cuda")
+    with pytest.raises(ValueError):         # head_dim over the kernels' 256
         flash_ops.attention(x, x, x)
+    wide_pool = torch.zeros((4, 8, 1, 272), device="cuda")
+    with pytest.raises(ValueError):
+        paged_ops.paged_decode_attention(torch.zeros((2, 4, 272), device="cuda"),
+                                         wide_pool, wide_pool, tbl, ctx)
     xb = torch.zeros((1, 8, 2, 40), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):         # bf16 d not a multiple of 16
         flash_ops.attention(xb, xb, xb)

@@ -212,8 +212,10 @@ def test_lm_modes_match_reference(setup, use_kernels):
 def test_unported_families_raise():
     for kw in (dict(num_experts=4, experts_per_token=2),
                dict(family="hybrid", attn_every=8, ssm_state=16),
-               dict(num_vision_tokens=8),
                dict(is_encoder_decoder=True)):
         cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"), **kw)
         with pytest.raises(NotImplementedError):
             make_model(cfg)
+    # the vision prefix is ported; it keeps the dense backend
+    vlm = dataclasses.replace(get_config("qwen2-0.5b-smoke"), num_vision_tokens=8)
+    assert not make_model(vlm).supports_paged()

@@ -33,11 +33,20 @@ def live_splits(ctx: int, max_blk: int, bs: int) -> int:
     return -(-min(max(ctx, 0), max_blk * bs) // SPLIT)
 
 
+def lane_geometry(d: int, itemsize: int) -> tuple[int, int, int]:
+    """(lanes a token row, 16-byte vectors a lane, lane groups of the
+    block's 4 warps) of the instance that runs head dim d (``Geo``): a row
+    of the instance's head dim (32, 64, 128 or 256) is copies of 16 bytes,
+    one a lane, two a lane where they would pass a warp (f32 at 256)."""
+    inst = next(n for n in (32, 64, 128, 256) if d <= n)
+    copies = inst * itemsize // 16
+    vectors = max(1, copies // 32)
+    lanes = copies // vectors
+    return lanes, vectors, 4 * 32 // lanes
+
+
 def lane_groups(d: int, itemsize: int) -> int:
-    """Lane groups of a block (4 warps): a group reads a token row of the
-    instance's head dim (32, 64 or 128) 16 bytes a lane."""
-    inst = 32 if d <= 32 else 64 if d <= 64 else 128
-    return 4 * 32 // (inst * itemsize // 16)
+    return lane_geometry(d, itemsize)[2]
 
 
 def _merge(m, l, acc, m2, l2, acc2):
@@ -120,6 +129,18 @@ def test_split_merge_matches_reference(B, H, KV, d, nb, bs, maxb, dtype):
 def test_split_merge_edges(bs, maxb, ctx, dtype):
     n_live = _check(*paged_edge_inputs(bs, maxb, ctx), dtype)
     assert n_live == [-(-min(c, maxb * bs) // SPLIT) for c in ctx]
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_lane_geometry_fits_a_warp(d, itemsize):
+    """Every instance reads a token row with one warp or part of one,
+    16 bytes a vector; only f32 at d = 256 takes two vectors a lane."""
+    lanes, vectors, groups = lane_geometry(d, itemsize)
+    inst = next(n for n in (32, 64, 128, 256) if d <= n)
+    assert lanes <= 32 and 32 % lanes == 0 and groups * lanes == 128
+    assert lanes * vectors * 16 == inst * itemsize
+    assert vectors == (2 if (inst, itemsize) == (256, 4) else 1)
 
 
 def test_live_splits_follow_the_context_not_the_table():

@@ -24,6 +24,10 @@ FLASH_CASES = [
     (1, 70, 90, 14, 2, 80, 0),         # d = 80 runs in the 128 instance
     (1, 200, 200, 14, 2, 64, 20),      # window shorter than a key tile
     (1, 320, 320, 4, 2, 128, 100),     # gemma3: rep 2, d = 128, a window of no whole tile
+    # d = 256 (gemma-2b, gemma3-4b, paligemma): two warpgroups in bf16, 32-row
+    # tiles in f32
+    (1, 130, 130, 8, 1, 256, 0),       # MQA, rep 8, a row past two tiles
+    (1, 320, 320, 8, 4, 256, 100),     # gemma3-4b: rep 2, a window of no whole tile
 ]
 # a q that is a strided view, (B,H,Sq,d) storage read as (B,Sq,H,d)
 FLASH_STRIDED_Q = (2, 96, 96, 14, 2, 64, 0)
@@ -33,6 +37,7 @@ PAGED_CASES = [
     (1, 8, 1, 128, 32, 16, 8),
     (4, 2, 2, 64, 12, 32, 3),
     (4, 14, 2, 64, 32, 16, 6),         # qwen2: rep 7
+    (4, 8, 1, 256, 16, 16, 6),         # gemma-2b: d = 256, MQA (f32: two vectors a lane)
 ]
 # SSD scan (b, S, H, P, N, chunk, G): the reference's sweep with B and C
 # per head (G = H), a grouped case, and mamba2's head shapes (G = 1)
