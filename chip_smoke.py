@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Eight phases, each fatal on failure:
+Nine phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -79,7 +79,21 @@ Eight phases, each fatal on failure:
            weight-read bound; its kernel path held to the plain path at 6
            layers along a bucketed prefill, a chunk and decode across the
            ring's wrap, and to the f32 plain path at the deepest depth that
-           fits (``compare_paths_deep``).
+           fits (``compare_paths_deep``);
+9. zoo     the rest of the model zoo, each model freed before the next:
+           the SSD scan first checked alone at jamba's heads (H 128, P 64,
+           N 16, one group; a right-padded tail too) and flash at 32 heads
+           over 8 (head_dim 128) and at a window of 4096 over 8192 tokens,
+           bf16 and f32, and timed; jamba-v0.1-52b at 16 of its 32 layers
+           (52.0 GB) on ``mamba_traffic``, dense: exactly 14 SSD scans and 2
+           flash a prefill group; mixtral-8x7b at 20 of its 32 layers (58.6
+           GB) at max_len 8192 on ``gemma_traffic`` and prompts of 4100 to
+           6000 tokens: exactly 20 flash a group, every one at window 4096;
+           whisper-small whole through ``InferenceEngine.submit`` with
+           seeded frames: no kernel, a prompt past the largest bucket
+           bounced; each decode step profiled against its bound and each
+           kernel path held to its plain path (``compare_paths_moe`` on
+           dense paths, ``compare_paths_encdec``).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -353,15 +367,12 @@ def ssd_work(b, S, H, P, N, G, Q, itemsize):
     return nbytes, flops
 
 
-def check_ssd(worst):
+def check_ssd_cases(H, P, N, G, cases, gen, worst, tag: str) -> None:
+    """The SSD scan against its plain version at heads (H, P, N, G), bf16 and
+    f32, over ``cases`` of (b, S, chunk, dt0_tail, strong_decay)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
-    H, P, N, G = 48, 64, 128, 1
-    cases = [(2, 256, 256, 0, False), (4, 512, 256, 0, False),
-             (1, 1024, 256, 0, False), (2, 256, 64, 0, False),
-             (1, 512, 256, 137, False), (2, 256, 128, 0, True)]
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[("ssd", dtype)]
         for b, S, Q, tail, strong in cases:
@@ -371,12 +382,40 @@ def check_ssd(worst):
             yr, hr = ssd_scan_ref(*args, chunk=Q)
             (ey, oky), (eh, okh) = max_err(y, yr, tol), max_err(h, hr, tol)
             worst["ssd_scan"] = max(worst["ssd_scan"], ey, eh)
-            log(f"[kernels] ssd_scan {str(dtype)[6:]} b={b} S={S} H={H} P={P} "
+            log(f"[{tag}] ssd_scan {str(dtype)[6:]} b={b} S={S} H={H} P={P} "
                 f"N={N} G={G} chunk={Q} dt0_tail={tail} strong_decay={strong}: "
                 f"max_abs_err y={ey:.3e} h_last={eh:.3e} "
                 f"(max |y| {float(yr.abs().max()):.3e})")
-            check(oky and okh, f"ssd_scan {dtype} b={b} S={S} chunk={Q} tail={tail} "
-                               f"strong={strong} disagrees with its plain version")
+            check(oky and okh, f"ssd_scan {dtype} b={b} S={S} H={H} N={N} chunk={Q} "
+                               f"tail={tail} strong={strong} disagrees with its plain version")
+
+
+def time_ssd(b, S, H, P, N, G, Q, gen) -> dict:
+    """Kernel (events and device time), plain version and bound in bf16."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    args = ssd_inputs(b, S, H, P, N, G, torch.bfloat16, gen)
+
+    def kernel():
+        return ssd_ops.ssd_scan(*args, chunk=Q)
+    b_ms, b_by = bound(*ssd_work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
+    dev, names = device_profile(kernel)
+    return dict(shape=f"b={b} S={S} H={H} P={P} N={N} G={G}", ms=cuda_ms(kernel),
+                plain_ms=cuda_ms(lambda: ssd_scan_ref(*args, chunk=Q), iters=20),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=dev,
+                device_kernels=names)
+
+
+def check_ssd(worst):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    H, P, N, G = 48, 64, 128, 1
+    check_ssd_cases(H, P, N, G, [(2, 256, 256, 0, False), (4, 512, 256, 0, False),
+                                 (1, 1024, 256, 0, False), (2, 256, 64, 0, False),
+                                 (1, 512, 256, 137, False), (2, 256, 128, 0, True)],
+                    gen, worst, "kernels")
     args = ssd_inputs(1, 64, 2, 8, 4, 1, torch.float32, gen)
     y, h = ssd_ops.ssd_scan(*args, chunk=16)
     ys, hs = ssd_recurrence(*args)
@@ -387,22 +426,38 @@ def check_ssd(worst):
 
     # one bucket-512 prefill group of mamba2 (4 rows), bf16 inputs
     b, S, Q = 4, 512, 256
-    args = ssd_inputs(b, S, H, P, N, G, torch.bfloat16, gen)
-    def kernel():
-        return ssd_ops.ssd_scan(*args, chunk=Q)
-    ms = cuda_ms(kernel)
-    plain = cuda_ms(lambda: ssd_scan_ref(*args, chunk=Q), iters=20)
-    b_ms, b_by = bound(*ssd_work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
-    dev, names = device_profile(kernel)
+    row = time_ssd(b, S, H, P, N, G, Q, gen)
     # device time by row count at S = 512: one row's 48 blocks leave most
     # SMs idle, so b = 1 reads one block's walk of the sequence
     by_rows = {}
     for rows in (1, 2, 8):
         a = ssd_inputs(rows, S, H, P, N, G, torch.bfloat16, gen)
         by_rows[rows] = device_ms(lambda: ssd_ops.ssd_scan(*a, chunk=Q))
-    return dict(shape=f"b={b} S={S} H={H} P={P} N={N} G={G}", ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                device_ms=dev, device_kernels=names, device_ms_by_rows=by_rows)
+    return dict(row, device_ms_by_rows=by_rows)
+
+
+def check_flash_cases(cases, gen, worst, tag: str) -> None:
+    """Flash against its plain version on random inputs, bf16 and f32, over
+    ``cases`` of (B, S, H, KV, d, window), causal, Sq = Skv."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    for B, S, H, KV, d, window in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
+            k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
+            out = flash_ops.attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=True, window=window).transpose(1, 2)
+            err, ok = max_err(out, ref, TOL[("flash", dtype)])
+            del q, k, v, ref, out
+            torch.cuda.empty_cache()
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            what = f"B={B} S={S} H={H} KV={KV} d={d} window={window}"
+            log(f"[{tag}] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
+            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
 
 
 def time_flash(B, S, H, KV, d, gen, window: int = 0):
@@ -576,26 +631,34 @@ def kernel_ops():
             "ssd_scan": ssd_ops}
 
 
-def bucket_groups(eng) -> list[int]:
-    """Bucket of every batched prefill the engine ran, read from its
+def group_rows(eng) -> list[tuple[int, int]]:
+    """(bucket, rows) of every batched prefill the engine ran, read from its
     tracer: admissions in one step (same time stamp) to one bucket."""
-    seen = set()
+    rows: dict = {}
     for tr in eng.tracer.traces():
         for sp in tr.spans:
             kind = sp.attrs.get("kind", "")
             if sp.name == "admission" and kind.startswith("bucket"):
-                seen.add((sp.t0, int(kind[len("bucket"):])))
-    return sorted(b for _, b in seen)
+                key = (sp.t0, int(kind[len("bucket"):]))
+                rows[key] = rows.get(key, 0) + 1
+    return sorted((b, n) for (_, b), n in rows.items())
 
 
-def serve(cfg, params, backend: str, buckets, waves, max_len: int = 1024):
+def bucket_groups(eng) -> list[int]:
+    """Bucket of every batched prefill the engine ran."""
+    return [b for b, _ in group_rows(eng)]
+
+
+def serve(cfg, params, backend: str, buckets, waves, max_len: int = 1024, sched=None):
+    from repro_torch.models import params as P
     from repro_torch.serving import (CompletionRequest, CompletionsAPI,
-                                     InferenceEngine)
+                                     InferenceEngine, SchedulerConfig)
 
     eng = InferenceEngine(cfg, params=params, capacity=8, max_len=max_len,
                           buckets=buckets, block_size=16,
+                          sched=sched or SchedulerConfig(),
                           kv_backend=backend, seed=SEED, device=DEV)
-    kv_bytes = sum(t.nbytes for pool in eng.caches for t in pool.values())
+    kv_bytes = sum(t.nbytes for t in P.tree_leaves(eng.caches))
     api = CompletionsAPI(eng, model=cfg.name)
     results = []
     ops = kernel_ops()
@@ -639,7 +702,7 @@ def serve(cfg, params, backend: str, buckets, waves, max_len: int = 1024):
         decode_s=round(sum(st.decode_s for st in hist), 3),
         peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         kv_pool_bytes=kv_bytes,
-        launches=counts, bucket_groups=bucket_groups(eng),
+        launches=counts, bucket_groups=bucket_groups(eng), group_rows=group_rows(eng),
         chunk_steps=sum(1 for st in hist if st.chunk_rows),
         chunk_steps_with_decode=sum(1 for st in hist
                                     if st.chunk_rows and st.tokens_out))
@@ -950,12 +1013,16 @@ def moe_step_report(cfg, prof, steps, dev_ms, wall_ms) -> dict:
             "step_set_by": "the card" if busy >= 0.9 else "the host"}
 
 
-def load_model(arch: str):
+def load_model(arch: str, num_layers: int | None = None):
+    """An arch's published config, cut to ``num_layers`` where given, and
+    its random weights drawn on the card from the seed."""
     from repro_torch.configs import get_config
     from repro_torch.models import params as P
     from repro_torch.models.lm import make_model
 
     cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     specs = make_model(cfg).param_specs()
     log(f"[serve] {cfg.name}: {P.count_params(specs) / 1e6:.1f}M params, "
         f"{P.count_bytes(specs) / 1e9:.3f} GB")
@@ -1353,10 +1420,13 @@ def phase_cluster():
 
 
 # ----------------------------------------------------------- gemma family
-# weight bytes of the port's specs, all layers (bf16 weights, f32 norm
-# scales), of the models served whole from here on
+# weight bytes of the port's specs (bf16 weights, f32 norm scales) of the
+# models drawn whole from here on, or at the depth they are served
 WEIGHT_BYTES = {"gemma-2b": 5_012_496_384, "gemma3-4b": 7_760_238_592,
-                "paligemma-3b": 5_017_477_120, "gemma3-27b": 54_018_046_976}
+                "paligemma-3b": 5_017_477_120, "gemma3-27b": 54_018_046_976,
+                "jamba-v0.1-52b": 51_997_155_840,     # 16 of its 32 layers
+                "mixtral-8x7b": 58_575_437_824,       # 20 of its 32 layers
+                "whisper-small": 529_227_264}
 GEMMA2B_HEADS = (8, 1, 256)   # H, KV, head_dim of gemma-2b and paligemma-3b
 GEMMA34B_HEADS = (8, 4, 256)  # of gemma3-4b
 FAMILY_FLASH = ((8, 1024, *GEMMA2B_HEADS, 0), (4, 2048, *GEMMA34B_HEADS, 1024),
@@ -1374,25 +1444,8 @@ def check_kernels_d256(worst) -> dict:
     at gemma-2b's decode step (B=8, ``PAGED_CTX``); then each timed in bf16
     beside its bound, flash beside SDPA with the same mask, paged decode
     held to one kernel a call."""
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-
     gen = torch.Generator(device=DEV).manual_seed(SEED + 17)
-    for B, S, H, KV, d, window in FAMILY_FLASH:
-        for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
-            k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
-            v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
-            out = flash_ops.attention(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                causal=True, window=window).transpose(1, 2)
-            err, ok = max_err(out, ref, TOL[("flash", dtype)])
-            del q, k, v, ref, out
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            what = f"B={B} S={S} H={H} KV={KV} d={d} window={window}"
-            log(f"[family] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
-            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
+    check_flash_cases(FAMILY_FLASH, gen, worst, "family")
     check_paged(*GEMMA2B_HEADS, gen, worst)
     flash = {}
     for B, S, H, KV, d, window in FAMILY_FLASH:
@@ -1489,31 +1542,28 @@ def vlm_path_logits(cfg, params, use_kernels: bool) -> list:
     return out
 
 
-def serve_vlm(cfg, params) -> dict:
-    """paligemma on the dense backend through ``InferenceEngine.submit`` (the
-    completions API carries no patches, as in the reference): 10 requests of
-    ``PALI_PROMPTS`` text tokens, 32 new each, every other one behind
-    seeded patches (1, 256, d_model) and the rest behind none (zeros); a
-    prompt one past the largest bucket must bounce, since a vision prefix
-    is never chunked."""
+def serve_submit(cfg, params, prompts, buckets, max_len: int, extras, seed: int) -> dict:
+    """A model on the dense backend through ``InferenceEngine.submit`` (the
+    completions API carries no patches or frames, as in the reference):
+    requests of ``prompts`` tokens, 32 new each, request i with
+    ``extras(i, gen)`` (paligemma's patches, whisper's frames); a prompt one
+    past the largest bucket must bounce, since neither a vision prefix nor
+    an encoder-decoder is ever chunked; no kernel may launch."""
     from repro_torch.serving import InferenceEngine, Request, SamplingParams, State
 
-    eng = InferenceEngine(cfg, params=params, capacity=8, max_len=PALI_MAX_LEN,
-                          buckets=PALI_BUCKETS, kv_backend="dense", seed=SEED,
+    eng = InferenceEngine(cfg, params=params, capacity=8, max_len=max_len,
+                          buckets=buckets, kv_backend="dense", seed=SEED,
                           device=DEV)
-    rng = np.random.default_rng(SEED + 6)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
-    over = Request(rid=99, prompt=[1] * (PALI_BUCKETS[-1] + 1))
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    over = Request(rid=99, prompt=[1] * (buckets[-1] + 1))
     check(not eng.submit(over, now=0.0) and over.state is State.REJECTED,
           f"{cfg.name}: a prompt of {len(over.prompt)} tokens was not rejected")
     reqs = []
-    for i, n in enumerate(PALI_PROMPTS):
-        extras = {}
-        if i % 2 == 0:
-            extras["patches"] = torch.randn((1, cfg.num_vision_tokens, cfg.d_model),
-                                            generator=gen, device=DEV) * PALI_PATCH_STD
+    for i, n in enumerate(prompts):
         reqs.append(Request(rid=i, prompt=[int(x) for x in rng.integers(0, cfg.vocab_size, n)],
-                            sampling=SamplingParams(max_new_tokens=32), extras=extras))
+                            sampling=SamplingParams(max_new_tokens=32),
+                            extras=extras(i, gen)))
         check(eng.submit(reqs[-1], now=0.0), f"{cfg.name}: request {i} rejected")
     ops = kernel_ops()
     torch.cuda.synchronize()
@@ -1546,18 +1596,19 @@ def serve_vlm(cfg, params) -> dict:
               f"{len(r.output)} tokens, state {r.state}")
         check(all(0 <= x < cfg.vocab_size for x in r.output),
               f"{cfg.name}: request {r.rid} produced an out-of-vocab token")
-    check(stats["chunk_steps"] == 0, f"{cfg.name}: a vision request went chunked")
+    check(stats["chunk_steps"] == 0, f"{cfg.name}: a request went chunked")
     check(all(n == 0 for n in stats["launches"].values()),
-          f"{cfg.name}: a kernel ran on the vision path ({stats['launches']})")
+          f"{cfg.name}: a kernel ran ({stats['launches']})")
     return stats
 
 
-def load_whole(arch: str, tag: str):
-    """A model drawn whole on the card, its weight bytes checked."""
+def load_whole(arch: str, tag: str, num_layers: int | None = None):
+    """A model drawn whole on the card (or its first ``num_layers``), its
+    weight bytes checked."""
     from repro_torch.models import params as P
 
     t0 = time.perf_counter()
-    cfg, params = load_model(arch)
+    cfg, params = load_model(arch, num_layers)
     torch.cuda.synchronize()
     nbytes = sum(t.nbytes for t in P.tree_leaves(params))
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, weight bytes {nbytes:,} drawn "
@@ -1574,7 +1625,7 @@ def phase_gemma_family(worst):
     (``compare_paths_deep``).  gemma-2b (MQA) on ``serve_traffic``, paged
     then dense: 18 paged launches a decode step, 18 flash a prefill group.
     gemma3-4b on ``gemma_traffic``, dense: 34 flash launches a group, window
-    1024 in its 29 local layers.  paligemma-3b (``serve_vlm``): no kernel."""
+    1024 in its 29 local layers.  paligemma-3b (``serve_submit``): no kernel."""
     release()
     t0 = time.perf_counter()
     out = check_kernels_d256(worst)
@@ -1621,7 +1672,12 @@ def phase_gemma_family(worst):
     release()
 
     cfg, params = load_whole("paligemma-3b", "family")
-    stats = serve_vlm(cfg, params)
+
+    def patches(i, gen):       # every other request behind seeded patches
+        return {} if i % 2 else {"patches": torch.randn(
+            (1, cfg.num_vision_tokens, cfg.d_model), generator=gen, device=DEV) * PALI_PATCH_STD}
+    stats = serve_submit(cfg, params, PALI_PROMPTS, PALI_BUCKETS, PALI_MAX_LEN, patches,
+                         seed=SEED + 6)
     prof = profile_decode(cfg, params, "dense", PALI_BUCKETS)
     done(cfg, stats, prof, compare_paths_deep(cfg, params, vlm_path_logits, "family"))
     del params
@@ -1665,18 +1721,48 @@ def check_exact_serve(cfg, stats, backend: str):
     check(counts["ssd_scan"] == 0, f"{cfg.name} {backend}: the SSD scan ran")
 
 
+class Routes:
+    """Records, through ``layers.moe_route``, the top-K expert ids every MoE
+    layer chooses for every position, per call (:meth:`call` opens one) and
+    layer.  ``forced``: such ids of another run, which every MoE layer then
+    takes in place of its own top-K, weighted by its own router
+    probabilities renormalised over them."""
+
+    def __init__(self, forced=None):
+        self.routes: list[list] = []
+        self.replay = None if forced is None else iter([i for c in forced for i in c])
+
+    def call(self):
+        self.routes.append([])
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.mod, self.real = L, L.moe_route
+
+        def route(p, x, c):
+            w, idx, probs = self.real(p, x, c)
+            if self.replay is not None:
+                idx = next(self.replay)
+                w = probs.gather(-1, idx)
+                w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+            self.routes[-1].append(idx)
+            return w, idx, probs
+
+        L.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.real
+
+
 def moe_path_logits(cfg, params, use_kernels: bool, toks, true_len, feed,
                     forced=None):
     """Logits (f32) of every call, in the dtype of ``params``: a prefill of
     right-padded prompts (flash on the kernel path), a paged chunked prefill
     of the same prompts, then paged decode steps fed the tokens ``feed``
     whatever the path, so that calls compare across paths and dtypes.  Also
-    the top-K expert ids each MoE layer chose for every position, per call
-    and layer, read through ``layers.moe_route``.  ``forced``: such ids of
-    another run, which every MoE layer then takes in place of its own top-K,
-    weighted by its own router probabilities renormalised over them."""
+    the routes of every call (:class:`Routes`, ``forced`` imposed)."""
     from repro_torch.configs.perf import BASELINE, with_overrides
-    from repro_torch.models import layers as L
     from repro_torch.models import params as P
     from repro_torch.models.lm import LM
 
@@ -1686,38 +1772,22 @@ def moe_path_logits(cfg, params, use_kernels: bool, toks, true_len, feed,
     max_blk = -(-(S + len(feed)) // bs)
     table = torch.arange(B * max_blk, dtype=torch.int32, device=DEV).view(B, max_blk)
     pools = P.init(None, m.paged_cache_specs(B * max_blk, bs), DEV)
-    real = L.moe_route
-    replay = None if forced is None else iter([i for call in forced for i in call])
-    routes: list[list] = []
-
-    def route(p, x, c):
-        w, idx, probs = real(p, x, c)
-        if replay is not None:
-            idx = next(replay)
-            w = probs.gather(-1, idx)
-            w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
-        routes[-1].append(idx)
-        return w, idx, probs
-
     out = []
-    L.moe_route = route
-    try:
-        routes.append([])
+    with Routes(forced) as r:
+        r.call()
         out.append(m.prefill(params, {"tokens": toks}, S, true_len=true_len)[0])
-        routes.append([])
+        r.call()
         out.append(m.prefill_chunk_paged(params, toks, torch.zeros_like(true_len),
                                          true_len, pools, table)[0])
         pos = true_len.clone()
         for f in feed:
-            routes.append([])
+            r.call()
             out.append(m.decode_step_paged(params, f, pos, pools, table)[0])
             pos = pos + 1
-    finally:
-        L.moe_route = real
     out = [o.float() for o in out]
     check(all(bool(torch.isfinite(o).all()) for o in out),
           f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
-    return out, routes
+    return out, r.routes
 
 
 def sets_differ(ra, rb) -> tuple[int, int]:
@@ -1729,36 +1799,72 @@ def sets_differ(ra, rb) -> tuple[int, int]:
             sum(a.shape[0] * a.shape[1] for a, _ in pairs))
 
 
-def compare_paths_moe(cfg, params) -> dict:
-    """qwen3-moe, the kernel path against the plain path on the same weights
-    and inputs (4 rows of 128 tokens, 100 / 77 / 12 valid on three; 4 decode
-    steps): max |diff| / max |logits| per call.
-
-    At ``MOE_SHORT_DEPTH`` layers of full width.  f32: kernel vs plain, each
-    path routing for itself, held to the f32 bar.  bf16: rounding alone
-    flips top-8 sets at full width (128 experts, near-uniform random
-    routers; the plain bf16 path against the f32 plain path shows it), and
-    one flipped expert moves a row's logits by about as much as the bar.  So
-    the bf16 bar is held with the plain path's experts imposed on the kernel
-    path (what the kernels change, carried through every layer), and the
-    readings with each path routing for itself are printed beside the plain
-    bf16 path's own distance from f32 and the flip counts.  Then, at the
-    deepest depth whose f32 copy fits on the card beside the bf16 weights,
-    each path routing for itself, each bf16 path against the f32 plain
-    path: the kernel path may be at most ``MOE_ERR_RATIO`` times as far
-    from it as the plain path."""
-    from repro_torch.models import params as P
-
+def moe_paged_path(cfg):
+    """qwen3-moe's path for :func:`compare_paths_moe`: :func:`moe_path_logits`
+    on 4 rows of 128 tokens (100, 77 and 12 valid on three) and 4 decode
+    steps."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     B, S = 4, 128
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
     true_len = torch.tensor([128, 100, 77, 12], device=DEV)
     feed = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen, device=DEV)
 
-    def run(depth, p, use_kernels, forced=None):
-        return moe_path_logits(dataclasses.replace(cfg, num_layers=depth),
-                               dict(p, layers=p["layers"][:depth]), use_kernels,
-                               toks, true_len, feed, forced)
+    def path(c, p, use_kernels, forced=None):
+        return moe_path_logits(c, p, use_kernels, toks, true_len, feed, forced)
+    return path
+
+
+def layer_bytes(layer, itemsize=None) -> int:
+    """Bytes of a layer's tensors as held, or at ``itemsize`` bytes each."""
+    from repro_torch.models import params as P
+    return sum(t.numel() * (itemsize or t.element_size()) for t in P.tree_leaves(layer))
+
+
+def deepest_f32_depth(params, margin: float, trim: bool) -> int:
+    """The deepest depth whose f32 copy (its layers, the embedding and the
+    final norm) fits on the card beside the bf16 weights with ``margin``
+    bytes to spare; with ``trim``, counting the bytes that releasing the
+    bf16 layers past it frees."""
+    f32 = [layer_bytes(x, 4) for x in params["layers"]]
+    held = [layer_bytes(x) for x in params["layers"]]
+    rest_f32 = sum(layer_bytes(params[k], 4) for k in ("embed", "final_norm"))
+    free = torch.cuda.mem_get_info()[0]
+    for depth in range(len(f32), 0, -1):
+        freed = sum(held[depth:]) if trim else 0
+        if sum(f32[:depth]) + rest_f32 + margin <= free + freed:
+            return depth
+    return 0
+
+
+def compare_paths_moe(cfg, params, path, depth: int = MOE_SHORT_DEPTH,
+                      margin: float = MOE_F32_MARGIN, tag: str = "moe",
+                      trim: bool = False) -> dict:
+    """An MoE model, the kernel path against the plain path on the same
+    weights and inputs: ``path(cfg, params, use_kernels, forced)`` gives the
+    logits of every call and the routes (e.g. :func:`moe_paged_path`); max
+    |diff| / max |logits| per call.
+
+    At ``depth`` layers of full width.  f32: kernel vs plain, each path
+    routing for itself, held to the f32 bar.  bf16: rounding alone flips
+    top-K sets at full width (near-uniform random routers; the plain bf16
+    path against the f32 plain path shows it), and one flipped expert moves
+    a row's logits by about as much as the bar.  So the bf16 bar is held
+    with the plain path's experts imposed on the kernel path (what the
+    kernels change, carried through every layer), and the readings with
+    each path routing for itself are printed beside the plain bf16 path's
+    own distance from f32 and the flip counts.  Then, at the deepest depth
+    whose f32 copy fits on the card beside the bf16 weights, each path
+    routing for itself, each bf16 path against the f32 plain path: the
+    kernel path may be at most ``MOE_ERR_RATIO`` times as far from it as
+    the plain path.  ``trim``: first release the bf16 layers past the
+    deepest depth whose f32 copy fits once they are gone
+    (``params["layers"]`` is cut there), for models whose whole bf16
+    weights leave no room for an f32 copy of ``depth`` layers."""
+    from repro_torch.models import params as P
+
+    def run(n, p, use_kernels, forced=None):
+        return path(dataclasses.replace(cfg, num_layers=n),
+                    dict(p, layers=p["layers"][:n]), use_kernels, forced)
 
     def reads(a, b):
         return [rel(x, y) for x, y in zip(a, b)]
@@ -1766,7 +1872,14 @@ def compare_paths_moe(cfg, params) -> dict:
     def calls(r):
         return [f"{x:.2e}" for x in r]
 
-    d = MOE_SHORT_DEPTH
+    d = depth
+    if trim:
+        keep = deepest_f32_depth(params, margin, trim=True)
+        check(keep >= d, f"{cfg.name}: an f32 copy of only {keep} layers fits on the card")
+        if keep < len(params["layers"]):
+            log(f"[{tag}] {cfg.name}: the bf16 layers past {keep} released for the paths")
+            del params["layers"][keep:]
+            release()
     (ko, kr), (po, pr) = run(d, params, True), run(d, params, False)
     fo, _ = run(d, params, True, forced=pr)
     p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:d]))
@@ -1778,16 +1891,16 @@ def compare_paths_moe(cfg, params) -> dict:
     flips = {"kernel_vs_plain_bf16": sets_differ(kr, pr),
              "plain_bf16_vs_plain_f32": sets_differ(pr, f32r),
              "kernel_vs_plain_f32": sets_differ(k32r, f32r)}
-    log(f"[moe] {d} layers, bf16, each path routing for itself: kernel vs plain "
-        f"rel per call {calls(free_r)}; plain bf16 vs plain f32 {calls(plain_f32)} "
-        "(a report)")
-    log(f"[moe] top-{cfg.experts_per_token} expert sets that differ, {d} layers, "
-        f"(position, layer) pairs: " + json.dumps(flips))
-    log(f"[moe] {d} layers, bf16, the plain path's experts imposed on the kernel "
-        f"path: kernel vs plain rel per call {calls(forced_r)} "
+    log(f"[{tag}] {cfg.name} {d} layers, bf16, each path routing for itself: kernel "
+        f"vs plain rel per call {calls(free_r)}; plain bf16 vs plain f32 "
+        f"{calls(plain_f32)} (a report)")
+    log(f"[{tag}] {cfg.name} top-{cfg.experts_per_token} expert sets that differ, {d} "
+        f"layers, (position, layer) pairs: " + json.dumps(flips))
+    log(f"[{tag}] {cfg.name} {d} layers, bf16, the plain path's experts imposed on the "
+        f"kernel path: kernel vs plain rel per call {calls(forced_r)} "
         f"(bar {MOE_LOGIT_REL_TOL[torch.bfloat16]})")
-    log(f"[moe] {d} layers, f32, each path routing for itself: kernel vs plain "
-        f"rel per call {calls(r32)} (bar {MOE_LOGIT_REL_TOL[torch.float32]})")
+    log(f"[{tag}] {cfg.name} {d} layers, f32, each path routing for itself: kernel vs "
+        f"plain rel per call {calls(r32)} (bar {MOE_LOGIT_REL_TOL[torch.float32]})")
     check(max(forced_r) <= MOE_LOGIT_REL_TOL[torch.bfloat16],
           f"{cfg.name} kernel-path logits off by rel {max(forced_r):.3e}, {d} "
           "layers bf16, experts imposed")
@@ -1798,30 +1911,27 @@ def compare_paths_moe(cfg, params) -> dict:
               f"plain_bf16_vs_f32_{d}_layers": max(plain_f32),
               f"f32_{d}_layers": max(r32), "topk_sets_differ": flips}
 
-    # the deepest depth whose f32 copy fits beside the bf16 weights
-    layer_f32 = sum(t.numel() * 4 for t in P.tree_leaves(params["layers"][0]))
-    rest_f32 = sum(t.numel() * 4 for k in ("embed", "final_norm")
-                   for t in P.tree_leaves(params[k]))
     free = torch.cuda.mem_get_info()[0]
-    depth = int(min(cfg.num_layers, (free - MOE_F32_MARGIN - rest_f32) // layer_f32))
-    check(depth >= MOE_SHORT_DEPTH, f"{cfg.name}: an f32 copy of only {depth} layers "
-          f"fits beside the bf16 weights ({free / 1e9:.2f} GB free)")
-    (ko, _), (po, _) = run(depth, params, True), run(depth, params, False)
-    p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:depth]))
-    fo, _ = run(depth, p32, False)
+    deep = min(deepest_f32_depth(params, margin, trim=False), cfg.num_layers)
+    check(deep >= d, f"{cfg.name}: an f32 copy of only {deep} layers fits beside the "
+          f"bf16 weights ({free / 1e9:.2f} GB free)")
+    (ko, _), (po, _) = run(deep, params, True), run(deep, params, False)
+    p32 = P.tree_map(lambda t: t.float(), dict(params, layers=params["layers"][:deep]))
+    fo, _ = run(deep, p32, False)
     del p32
     torch.cuda.empty_cache()
     err = {"kernel": reads(ko, fo), "plain": reads(po, fo)}
-    log(f"[moe] bf16 paths vs the f32 plain path, {depth} layers (the deepest "
-        f"whose f32 copy fits beside the bf16 weights; {free / 1e9:.2f} GB were "
-        f"free), each path routing for itself: rel per call kernel "
-        f"{calls(err['kernel'])}, plain {calls(err['plain'])} (bar: kernel <= "
-        f"{MOE_ERR_RATIO} x plain)")
+    log(f"[{tag}] {cfg.name} bf16 paths vs the f32 plain path, {deep} layers (the "
+        f"deepest whose f32 copy fits beside the bf16 weights held; {free / 1e9:.2f} GB "
+        f"were free), each path "
+        f"routing for itself: rel per call kernel {calls(err['kernel'])}, plain "
+        f"{calls(err['plain'])} (bar: kernel <= {MOE_ERR_RATIO} x plain)")
     check(max(err["kernel"]) <= MOE_ERR_RATIO * max(err["plain"]),
           f"{cfg.name} bf16 kernel path is rel {max(err['kernel']):.3e} from the f32 "
-          f"plain path at {depth} layers, the plain bf16 path {max(err['plain']):.3e}")
-    report.update(f32_ratio_depth=depth, vs_f32_kernel=max(err["kernel"]),
-                  vs_f32_plain=max(err["plain"]))
+          f"plain path at {deep} layers, the plain bf16 path {max(err['plain']):.3e}")
+    report.update(f32_ratio_depth=deep, vs_f32_kernel=max(err["kernel"]),
+                  vs_f32_plain=max(err["plain"]),
+                  ratio=max(err["kernel"]) / max(err["plain"]))
     return report
 
 
@@ -1845,7 +1955,7 @@ def phase_moe():
           f"{cfg.name}: {prof['paged_launches_per_step']} paged-decode launches "
           f"per decode step, not {cfg.num_layers}")
     stats["decode_profile"] = prof
-    stats["paths"] = compare_paths_moe(cfg, params)
+    stats["paths"] = compare_paths_moe(cfg, params, moe_paged_path(cfg))
     del params
     release()
     stats["launches"] = {name: stats["paged"]["launches"][name]
@@ -1884,27 +1994,10 @@ def check_flash_gemma(worst) -> dict:
     windows 1024, 0 and 1000 (no whole tile), bf16 and f32, against its
     plain version; then each window timed in bf16 beside SDPA with the same
     mask and the bound."""
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-
     gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
     B, S = GEMMA_FLASH
     H, KV, d = GEMMA_HEADS
-    for dtype in (torch.bfloat16, torch.float32):
-        for window in GEMMA_WINDOWS:
-            q = torch.randn((B, S, H, d), generator=gen, device=DEV).to(dtype)
-            k = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
-            v = torch.randn((B, S, KV, d), generator=gen, device=DEV).to(dtype)
-            out = flash_ops.attention(q, k, v, causal=True, window=window)
-            torch.cuda.synchronize()
-            ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                causal=True, window=window).transpose(1, 2)
-            err, ok = max_err(out, ref, TOL[("flash", dtype)])
-            del q, k, v, ref, out
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            what = f"B={B} S={S} H={H} KV={KV} d={d} window={window}"
-            log(f"[gemma3] flash_attention {str(dtype)[6:]} {what}: max_abs_err={err:.3e}")
-            check(ok, f"flash_attention {dtype} {what} disagrees with its plain version")
+    check_flash_cases([(B, S, H, KV, d, w) for w in GEMMA_WINDOWS], gen, worst, "gemma3")
     rows = {}
     for window in GEMMA_WINDOWS:
         rows[f"window_{window}"] = r = time_flash(B, S, H, KV, d, gen, window=window)
@@ -2048,15 +2141,300 @@ def phase_gemma3(worst):
     return out
 
 
-def step_vs_bound(cfg, prof) -> dict:
+# -------------------------------------------------------------------- zoo
+JAMBA = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16             # two whole Jamba blocks of the published 32
+JAMBA_BUCKETS = (64, 256, 512)
+JAMBA_SSD = (4, 512, 128, 64, 16, 1, 256)   # b, S, H, P, N, G, chunk
+JAMBA_SHORT_DEPTH = 6         # SSM layers, attention at 4, MoE at 1, 3 and 5
+ZOO_HEADS = (32, 8, 128)      # H, KV, head_dim of jamba's and mixtral's attention
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_LAYERS = 20           # the weight budget qwen3-moe used
+MIXTRAL_MAX_LEN = 8192
+MIXTRAL_BUCKETS = (128, 512, 2048, 8192)
+MIXTRAL_LONG = (4100, 5000, 6000)   # past the window of 4096
+MIXTRAL_FLASH = (1, 8192, 4096)     # B, S, window of flash alone
+MIXTRAL_SHORT_DEPTH = 4
+WHISPER = "whisper-small"
+WHISPER_BUCKETS = (64, 128, 256, 512)
+WHISPER_MAX_LEN = 1024
+WHISPER_PROMPTS = (12, 20, 40, 64, 90, 100, 128, 150, 180, 200)
+WHISPER_FRAME_STD = 0.02
+# device bytes left free beside the f32 copy of the paths' ratio: the plain
+# f32 path's activations at their prefill (jamba: 4 rows of 512; mixtral:
+# 2 rows of 5120, where an expert's slots of a row number 1600)
+ZOO_F32_MARGIN = {JAMBA: 6e9, MIXTRAL: 12e9}
+
+
+def check_kernels_zoo(worst) -> dict:
+    """The SSD scan at jamba's heads (b=4, S=512, H=128, P=64, N=16, G=1,
+    chunk 256, and one row with a right-padded tail of 137) and flash at
+    jamba's prefill group (B=4, S=512, 32 heads over 8, d=128) and at
+    mixtral's window (B=1, S=8192, window 4096: 64 key tiles), each in bf16
+    and f32 against its plain version; then each timed in bf16 beside its
+    bound, the SSD scan by events and device time, flash beside SDPA with
+    the same mask."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    b, S, H, P, N, G, Q = JAMBA_SSD
+    check_ssd_cases(H, P, N, G, [(b, S, Q, 0, False), (1, S, Q, 137, False)], gen, worst,
+                    "zoo")
+    ssd = time_ssd(b, S, H, P, N, G, Q, gen)
+    log(f"[zoo] ssd_scan timing bf16: {json.dumps(ssd)}")
+    B_m, S_m, w_m = MIXTRAL_FLASH
+    check_flash_cases([(4, 512, *ZOO_HEADS, 0), (B_m, S_m, *ZOO_HEADS, w_m)], gen, worst,
+                      "zoo")
+    flash = {"jamba_B4_S512": time_flash(4, 512, *ZOO_HEADS, gen),
+             f"mixtral_B{B_m}_S{S_m}_window_{w_m}": time_flash(B_m, S_m, *ZOO_HEADS, gen,
+                                                               window=w_m)}
+    for key, r in flash.items():
+        log(f"[zoo] flash_attention timing bf16 {key}: {json.dumps(r)}")
+    release()
+    return {"ssd": ssd, "flash": flash}
+
+
+def dense_path(cfg, S: int, true_len, chunk: int, steps: int, max_len: int, seed: int):
+    """A path for :func:`compare_paths_moe` on the dense caches: a bucketed
+    prefill of right-padded rows of ``S`` tokens, ``true_len`` valid (flash,
+    and the SSD scan on SSM layers, on the kernel path), a chunk of
+    ``chunk`` tokens appended to row 0 with the other rows idle (the SSM,
+    attention and ring chunk modes), then ``steps`` decode steps fed the
+    same drawn tokens whatever the path.  Returns ``path(cfg, params,
+    use_kernels, forced)`` -> (f32 logits of every call, the routes)."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models.lm import LM
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    V, B = cfg.vocab_size, len(true_len)
+    toks = torch.randint(0, V, (B, S), generator=gen, device=DEV)
+    more = torch.randint(0, V, (B, chunk), generator=gen, device=DEV)
+    feed = torch.randint(0, V, (steps, B, 1), generator=gen, device=DEV)
+    tl = torch.tensor(true_len, device=DEV)
+    n_valid = torch.zeros_like(tl)
+    n_valid[0] = chunk
+
+    def path(c, params, use_kernels, forced=None):
+        m = LM(c, with_overrides(BASELINE, use_kernels=use_kernels))
+        out = []
+        with Routes(forced) as r:
+            r.call()
+            logits, caches = m.prefill(params, {"tokens": toks}, max_len, true_len=tl)
+            out.append(logits)
+            r.call()
+            logits, caches = m.prefill_chunk(params, more, tl, n_valid, caches)
+            out.append(logits[:1])                     # the other rows took no chunk
+            pos = tl + n_valid
+            for f in feed:
+                r.call()
+                logits, caches = m.decode_step(params, f, pos, caches)
+                out.append(logits)
+                pos = pos + 1
+        out = [o.float() for o in out]
+        check(all(bool(torch.isfinite(o).all()) for o in out),
+              f"{c.name}: non-finite logits (use_kernels={use_kernels})")
+        return out, r.routes
+    return path
+
+
+def check_jamba_serve(cfg, stats):
+    """14 SSD scans and 2 flash a bucketed prefill group (16 layers: SSM
+    but at 4 and 12), paged decode never; the 700-token prompt chunked
+    beside decoding rows."""
+    counts, groups = stats["launches"], stats["bucket_groups"]
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers))
+    check(stats["requests"] == 10, f"{cfg.name}: {stats['requests']} requests served")
+    check(groups and counts["ssd_scan"] == n_ssm * len(groups)
+          and counts["flash_attention"] == (cfg.num_layers - n_ssm) * len(groups),
+          f"{cfg.name}: {counts} launches for {len(groups)} bucketed prefill groups "
+          f"of {n_ssm} SSM and {cfg.num_layers - n_ssm} attention layers")
+    check(counts["paged_attention"] == 0, f"{cfg.name}: paged decode ran")
+    check(512 in groups, f"{cfg.name}: no prefill group at bucket 512 ({groups})")
+    check(stats["chunk_steps_with_decode"] > 0,
+          f"{cfg.name}: the chunked prompt never advanced beside decoding rows")
+
+
+def mixtral_traffic(vocab: int):
+    """``gemma_traffic``'s 10 requests (12..3600 tokens) and three past the
+    window (4100, 5000, 6000 tokens): with buckets up to 8192 and a prefill
+    budget of 8192 tokens a step, each prompt above 2048 tokens is prefilled
+    alone in a bucket-8192 group; the three longest have flash's window bite
+    and decode through rings that have wrapped."""
+    rng = np.random.default_rng(SEED + 25)
+    long = [[int(x) for x in rng.integers(0, vocab, n)] for n in MIXTRAL_LONG]
+    return [gemma_traffic(vocab)[0] + long]
+
+
+def check_mixtral_serve(cfg, stats):
+    """20 flash launches a bucketed prefill group, every one at window 4096;
+    one row a bucket-8192 group; no chunk, no paged decode."""
+    counts, groups = stats["launches"], stats["bucket_groups"]
+    n = len(GEMMA_PROMPTS) + len(MIXTRAL_LONG)
+    check(stats["requests"] == n, f"{cfg.name}: {stats['requests']} requests served")
+    check(groups and counts["flash_attention"] == cfg.num_layers * len(groups),
+          f"{cfg.name}: {counts['flash_attention']} flash launches for {len(groups)} "
+          f"bucketed prefill groups x {cfg.num_layers} layers")
+    check(stats["flash_calls_by_window"] == {cfg.sliding_window: cfg.num_layers * len(groups)},
+          f"{cfg.name}: flash calls by window {stats['flash_calls_by_window']}")
+    long = [r for b, r in stats["group_rows"] if b == MIXTRAL_BUCKETS[-1]]
+    check(len(long) == 6 and set(long) == {1},
+          f"{cfg.name}: bucket-8192 groups of {long} rows")
+    check(counts["paged_attention"] == 0 and counts["ssd_scan"] == 0,
+          f"{cfg.name}: paged decode or the SSD scan ran ({counts})")
+
+
+def encdec_step_bound(cfg, rows: int, ctx: int) -> tuple[float, int]:
+    """The least time an encoder-decoder's decode step can take at 3.35 TB/s,
+    (ms, bytes): the decoder's weights, the final norm and the tied table
+    (the unembedding reads it whole) read once, and for each of ``rows``
+    rows every layer's bf16 cross-KV (``encoder_seq`` positions) and
+    self-KV (``ctx`` positions).  The encoder's weights are not read."""
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import make_model
+
+    specs = make_model(cfg).param_specs()
+    nbytes = sum(P.count_bytes(specs[k]) for k in ("decoder", "final_norm", "embed"))
+    per_pos = cfg.num_layers * rows * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+    nbytes += per_pos * (cfg.encoder_seq + ctx)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def encdec_path_logits(cfg, params, use_kernels: bool) -> list:
+    """Logits (f32) of every call, in the dtype of ``params``: a prefill of 4
+    right-padded prompts of 128, 100, 77 and 12 tokens behind seeded frames,
+    then 4 decode steps reading the cross-KV, fed the same drawn tokens
+    whatever the path."""
+    from repro_torch.configs.perf import BASELINE, with_overrides
+    from repro_torch.models.lm import make_model
+
+    m = make_model(cfg, with_overrides(BASELINE, use_kernels=use_kernels))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 27)
+    B, S = 4, 128
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=DEV)
+    feed = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen, device=DEV)
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=DEV) * WHISPER_FRAME_STD
+    true_len = torch.tensor([128, 100, 77, 12], device=DEV)
+    logits, caches = m.prefill(params, {"tokens": toks, "frames": frames}, S + len(feed),
+                               true_len=true_len)
+    out = [logits]
+    pos = true_len.clone()
+    for f in feed:
+        logits, caches = m.decode_step(params, f, pos, caches)
+        out.append(logits)
+        pos = pos + 1
+    out = [o.float() for o in out]
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"{cfg.name}: non-finite logits (use_kernels={use_kernels})")
+    return out
+
+
+def compare_paths_encdec(cfg, params) -> dict:
+    """whisper whole: the bf16 kernel path (no kernel runs on it: the
+    reference takes the plain attention everywhere here) and the bf16 plain
+    path, each against the f32 plain path; the kernel path at most
+    ``GEMMA_ERR_RATIO`` times as far from it as the plain path."""
+    from repro_torch.models import params as P
+
+    ko, po = encdec_path_logits(cfg, params, True), encdec_path_logits(cfg, params, False)
+    fo = encdec_path_logits(cfg, P.tree_map(lambda t: t.float(), params), False)
+    err = {"kernel": [rel(x, y) for x, y in zip(ko, fo)],
+           "plain": [rel(x, y) for x, y in zip(po, fo)]}
+    log(f"[zoo] {cfg.name} bf16 paths vs the f32 plain path, whole: rel per call "
+        f"kernel {[f'{x:.2e}' for x in err['kernel']]}, plain "
+        f"{[f'{x:.2e}' for x in err['plain']]} (bar: kernel <= {GEMMA_ERR_RATIO} x plain)")
+    check(max(err["kernel"]) <= GEMMA_ERR_RATIO * max(err["plain"]),
+          f"{cfg.name} bf16 kernel path is rel {max(err['kernel']):.3e} from the f32 "
+          f"plain path, the plain bf16 path {max(err['plain']):.3e}")
+    return {"vs_f32_kernel": max(err["kernel"]), "vs_f32_plain": max(err["plain"]),
+            "ratio": max(err["kernel"]) / max(err["plain"])}
+
+
+def phase_zoo(worst):
+    """The rest of the model zoo, one model after another, each freed before
+    the next, after the kernels are checked and timed at their shapes
+    (:func:`check_kernels_zoo`).  jamba-v0.1-52b at 16 of its 32 layers
+    (52.0 GB) on ``mamba_traffic``, dense: 14 SSD scans and 2 flash a
+    prefill group; mixtral-8x7b at 20 of 32 (58.6 GB) on
+    ``mixtral_traffic`` at max_len 8192, dense: 20 flash a group, all at
+    window 4096; whisper-small whole through ``InferenceEngine.submit`` with
+    seeded frames: no kernel.  Each decode step profiled against its bound
+    (the MoE models split by part), each kernel path held to its plain path
+    (``compare_paths_moe``, ``compare_paths_encdec``)."""
+    from repro_torch.serving import SchedulerConfig
+
+    release()
+    log(f"[zoo] device memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    out = check_kernels_zoo(worst)
+    launches = {name: 0 for name in kernel_ops()}
+    models = {}
+
+    def done(cfg, stats, step, paths):
+        for name, n in stats["launches"].items():
+            launches[name] += n
+        models[cfg.name] = {"serve": stats, "decode_step": step, "paths": paths}
+        log(f"[zoo] {cfg.name} {json.dumps({k: models[cfg.name][k] for k in ('decode_step', 'paths')})}")
+
+    def moe_step(cfg, prof):
+        return dict(step_vs_bound(cfg, prof), moe=prof.get("moe", "not measured"))
+
+    cfg, params = load_whole(JAMBA, "zoo", JAMBA_LAYERS)
+    stats = serve(cfg, params, "dense", JAMBA_BUCKETS, mamba_traffic(cfg.vocab_size))
+    check_jamba_serve(cfg, stats)
+    step = moe_step(cfg, profile_decode(cfg, params, "dense", JAMBA_BUCKETS))
+    path = dense_path(cfg, 512, (512, 400, 300, 12), chunk=300, steps=4, max_len=1024,
+                      seed=SEED + 29)
+    done(cfg, stats, step, compare_paths_moe(cfg, params, path, JAMBA_SHORT_DEPTH,
+                                             ZOO_F32_MARGIN[JAMBA], "zoo", trim=True))
+    del params
+    release()
+
+    cfg, params = load_whole(MIXTRAL, "zoo", MIXTRAL_LAYERS)
+    with FlashWindows() as fw:
+        stats = serve(cfg, params, "dense", MIXTRAL_BUCKETS, mixtral_traffic(cfg.vocab_size),
+                      max_len=MIXTRAL_MAX_LEN,
+                      sched=SchedulerConfig(prefill_token_budget=MIXTRAL_BUCKETS[-1]))
+    stats["flash_calls_by_window"] = fw.by_window
+    check_mixtral_serve(cfg, stats)
+    release()
+    step = moe_step(cfg, profile_decode(cfg, params, "dense", MIXTRAL_BUCKETS))
+    path = dense_path(cfg, 5120, (5120, 4200), chunk=600, steps=4,
+                      max_len=MIXTRAL_MAX_LEN, seed=SEED + 31)
+    done(cfg, stats, step, compare_paths_moe(cfg, params, path, MIXTRAL_SHORT_DEPTH,
+                                             ZOO_F32_MARGIN[MIXTRAL], "zoo", trim=True))
+    del params
+    release()
+
+    cfg, params = load_whole(WHISPER, "zoo")
+
+    def frames(i, gen):
+        return {"frames": torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                      device=DEV) * WHISPER_FRAME_STD}
+    stats = serve_submit(cfg, params, WHISPER_PROMPTS, WHISPER_BUCKETS, WHISPER_MAX_LEN,
+                         frames, seed=SEED + 21)
+    prof = profile_decode(cfg, params, "dense", WHISPER_BUCKETS)
+    step = step_vs_bound(cfg, prof, encdec_step_bound(cfg, rows=8, ctx=300))
+    done(cfg, stats, step, compare_paths_encdec(cfg, params))
+    del params
+    release()
+
+    out.update(launches=launches, models=models,
+               phase_s=round(time.perf_counter() - t0, 1))
+    log(f"[zoo] {json.dumps({'phase_s': out['phase_s'], 'launches': launches})}")
+    log(f"[zoo] {gpu_line()}")
+    return out
+
+
+def step_vs_bound(cfg, prof, bound=None) -> dict:
     """A profiled decode step (:func:`profile_decode`) beside the least time
-    it can take, every weight read once at 3.35 TB/s."""
-    bound_ms, wbytes = weight_read_bound_ms(cfg)
+    it can take: ``bound`` (ms, bytes), by default every weight read once at
+    3.35 TB/s (:func:`weight_read_bound_ms`)."""
+    bound_ms, wbytes = bound or weight_read_bound_ms(cfg)
     dev_ms = prof["decode_step_device_ms"]
     return {"decode_step_device_ms": dev_ms,
             "decode_step_wall_ms": prof["decode_step_wall_ms"],
             "busy_share": prof["device_busy_share"],
-            "weight_bytes_read_once": wbytes, "step_bound_ms": round(bound_ms, 3),
+            "bytes_read_once": wbytes, "step_bound_ms": round(bound_ms, 3),
             "device_over_bound": (round(dev_ms / bound_ms, 3)
                                   if isinstance(dev_ms, float) else "not measured"),
             "wall_over_bound": round(prof["decode_step_wall_ms"] / bound_ms, 3)}
@@ -2094,11 +2472,14 @@ def main() -> int:
         stats["family"] = phase_gemma_family(worst)
         stats["moe"] = phase_moe()
         stats["gemma3"] = phase_gemma3(worst)
+        stats["zoo"] = phase_zoo(worst)
         for name, err in worst.items():
             rows[name]["max_abs_err"] = err
         rows["flash_attention"]["gemma3"] = stats["gemma3"]["flash"]
         rows["flash_attention"]["gemma_family"] = stats["family"]["flash"]
         rows["paged_attention"]["gemma_family"] = stats["family"]["paged"]
+        rows["flash_attention"]["zoo"] = stats["zoo"]["flash"]
+        rows["ssd_scan"]["jamba"] = stats["zoo"]["ssd"]
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2110,6 +2491,7 @@ def main() -> int:
                 "gemma_family_launches": stats["family"]["launches"][name],
                 "moe_launches": stats["moe"]["launches"][name],
                 "gemma3_launches": stats["gemma3"]["launches"][name],
+                "zoo_launches": stats["zoo"]["launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

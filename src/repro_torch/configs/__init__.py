@@ -1,4 +1,4 @@
-"""Architecture registry: the archs the port runs (``<arch>-smoke`` too)."""
+"""Architecture registry: every arch of the reference (``<arch>-smoke`` too)."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +14,8 @@ _ARCH_MODULES = {
     "gemma-2b": "gemma_2b",
     "gemma3-4b": "gemma3_4b",
     "paligemma-3b": "paligemma_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

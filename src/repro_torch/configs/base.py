@@ -3,8 +3,7 @@
 Each architecture contributes one module in this package exporting
 ``CONFIG`` (exact published dims) — see the per-arch files.  ``reduced()``
 derives a structure-preserving tiny variant for CPU smoke tests.  The
-fields of every family stay, so that a config of the reference package can
-be mirrored field for field; the model raises on families not ported yet.
+fields mirror the reference package's config field for field.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Functional layers of the port: the subset of the reference's
-``models/layers.py`` that dense GQA decoders (qwen2, gemma), MoE decoders
+"""Functional layers of the port: what serving runs of the reference's
+``models/layers.py``, for dense GQA decoders (qwen2, gemma), MoE decoders
 with q/k RMSNorm (qwen3-moe), windowed decoders with ring KV caches
-(gemma3, mixtral) and a vision prefix under a prefix-LM mask (paligemma)
-run.
+(gemma3, mixtral), a vision prefix under a prefix-LM mask (paligemma), the
+hybrid stack (jamba) and the encoder-decoder (whisper: LayerNorm, a biased
+GELU MLP, cross-attention).
 
 Conventions follow the reference: activations in the parameter dtype,
 softmax and norm statistics in f32, attention scores accumulated in f32
@@ -45,6 +46,19 @@ def rmsnorm(p, x, eps: float, *, plus_one: bool = True):
     return (y * w).to(x.dtype)
 
 
+def layernorm_specs(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("norm",), dtype=f32, init="ones"),
+            "bias": ParamSpec((d,), ("norm",), dtype=f32, init="zeros")}
+
+
+def layernorm(p, x, eps: float):
+    """LayerNorm with the biased variance, in f32, cast back to x's dtype."""
+    xf = x.to(f32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary embedding (half-rotation / NeoX style)
 # ---------------------------------------------------------------------------
@@ -74,7 +88,9 @@ def rope(x, positions, theta: float):
 # attention
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig) -> dict:
+def attention_specs(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """q/k/v/o projections; ``cross`` (an encoder-decoder's cross-attention,
+    keys and values from the encoder's output) takes no biases."""
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     # fan_in is the contracted size: the reference's rule (second-to-last
     # dim) would scale q and k by the head count and make the softmax of
@@ -85,7 +101,7 @@ def attention_specs(cfg: ModelConfig) -> dict:
         "wv": ParamSpec((D, KV, hd), ("embed", "kv_heads", "qkv"), fan_in=D),
         "wo": ParamSpec((H, hd, D), ("heads", "qkv", "embed"), fan_in=H * hd),
     }
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         specs["bq"] = ParamSpec((H, hd), ("heads", "qkv"), init="zeros")
         specs["bk"] = ParamSpec((KV, hd), ("kv_heads", "qkv"), init="zeros")
         specs["bv"] = ParamSpec((KV, hd), ("kv_heads", "qkv"), init="zeros")
@@ -356,6 +372,11 @@ def cache_valid_mask(cache, pos, *, ring: bool = False, window: int = 0):
 
 def mlp_specs(cfg: ModelConfig) -> dict:
     D, F_ = cfg.d_model, cfg.d_ff
+    if cfg.mlp_activation == "gelu_plain":
+        return {"w_in": ParamSpec((D, F_), ("embed", "mlp")),
+                "b_in": ParamSpec((F_,), ("mlp",), init="zeros"),
+                "w_out": ParamSpec((F_, D), ("mlp", "embed")),
+                "b_out": ParamSpec((D,), ("embed",), init="zeros")}
     return {
         "w_gate": ParamSpec((D, F_), ("embed", "mlp")),
         "w_up": ParamSpec((D, F_), ("embed", "mlp")),
@@ -370,7 +391,11 @@ def _act(name: str, x):
 
 
 def mlp_apply(p, x, cfg: ModelConfig):
-    """SwiGLU (or GeGLU) MLP."""
+    """SwiGLU or GeGLU MLP; ``gelu_plain``: x @ w_in + b_in, tanh GELU, then
+    @ w_out + b_out (whisper)."""
+    if cfg.mlp_activation == "gelu_plain":
+        h = _act("gelu", x @ p["w_in"] + p["b_in"].to(x.dtype))
+        return h @ p["w_out"] + p["b_out"].to(x.dtype)
     h = _act(cfg.mlp_activation, x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 

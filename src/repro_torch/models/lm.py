@@ -1,9 +1,11 @@
 """Decoder-only LM of the port: dense global-attention decoders (qwen2,
 gemma-2b), MoE decoders with q/k RMSNorm (qwen3-moe), windowed decoders
 (gemma3's local and global layers, mixtral's uniform sliding window),
-attention-free SSM decoders (mamba2) and a vision-language decoder whose
-prompt opens with precomputed patch embeddings under a prefix-LM mask
-(paligemma).
+attention-free SSM decoders (mamba2), hybrid stacks of SSM, attention and
+MoE layers (jamba) and a vision-language decoder whose prompt opens with
+precomputed patch embeddings under a prefix-LM mask (paligemma).
+``make_model`` returns the encoder-decoder (``models/whisper.py``) for
+whisper.
 
 The reference runs a ``lax.scan`` over stacked layer groups; here the trunk
 is a plain loop over ``params["layers"]``, one dict per layer.  Caches are
@@ -35,21 +37,6 @@ from repro_torch.models import mamba as M
 from repro_torch.models import params as P
 
 
-def _unsupported(cfg: ModelConfig) -> str | None:
-    """Name of the first model family this port does not cover yet."""
-    # the MoE family (every layer MoE or dense by ``moe_every``) is ported;
-    # expert layers inside another family (jamba's hybrid stack) are not
-    if cfg.num_experts and cfg.family != "moe":
-        return f"MoE layers in a {cfg.family} model"
-    if cfg.family == "hybrid" or cfg.attn_every:
-        return "hybrid attention/SSM"
-    if cfg.is_encoder_decoder or cfg.family == "encdec":
-        return "enc-dec"
-    if cfg.mlp_activation not in ("silu", "gelu"):
-        return f"{cfg.mlp_activation} MLP"
-    return None
-
-
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> dict:
     mixer = M.ssd_specs(cfg) if kind == "ssm" else L.attention_specs(cfg)
     return {"ln1": L.rmsnorm_specs(cfg.d_model), "mixer": mixer,
@@ -63,10 +50,6 @@ def torch_dtype(name: str) -> torch.dtype:
 
 class LM:
     def __init__(self, cfg: ModelConfig, perf: PerfConfig = BASELINE):
-        family = _unsupported(cfg)
-        if family is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {family} is not ported to PyTorch yet")
         self.cfg = cfg
         self.perf = perf
         self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
@@ -242,8 +225,10 @@ class LM:
         if self.has_attn:
             slots = self._write_slots(mode, x.shape[1], caches, pos, true_len,
                                       block_table, live)
-            # one rope table for each theta (gemma3: local and global)
-            angles = {th: L.rope_angles(positions, cfg.head_dim, th)
+            # one rope table for each theta (gemma3: local and global), none
+            # without rope (jamba)
+            angles = {th: L.rope_angles(positions, cfg.head_dim, th) if cfg.use_rope
+                      else None
                       for th in {self._theta(k) for k in self.kinds if k != "ssm"}}
         new_caches = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -360,5 +345,8 @@ class LM:
         return self._last_logits(params, x, (n_valid.long() - 1).clamp(min=0)), pools
 
 
-def make_model(cfg: ModelConfig, perf: PerfConfig = BASELINE) -> LM:
+def make_model(cfg: ModelConfig, perf: PerfConfig = BASELINE):
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.whisper import EncDec
+        return EncDec(cfg, perf)
     return LM(cfg, perf)

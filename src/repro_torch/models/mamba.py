@@ -296,6 +296,11 @@ def ssd_apply_decode(p, x, cache, cfg: ModelConfig, *, live=None):
     out = _out(p, y.to(x.dtype)[:, None])
     for n, new in (("h", h), ("conv_x", nconv_x), ("conv_B", nconv_B),
                    ("conv_C", nconv_C)):
+        if n != "h" and cache[n].dtype != x.dtype:
+            # the reference returns the conv tails in the activations'
+            # dtype, so a bf16 pool's tails widen to f32 under f32 weights
+            # at the first decode step; the leaf is replaced to match
+            cache[n] = cache[n].to(x.dtype)
         c = cache[n]
         new = new.to(c.dtype)
         if live is not None:

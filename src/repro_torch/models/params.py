@@ -33,13 +33,21 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
 
 
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of a tree of dicts and lists; with
+    ``rest``, over the corresponding leaves of trees of the same structure
+    too (dict entries matched by key)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_zip(tree, *rest) -> list[tuple]:
+    """The corresponding leaves of trees of one structure, as tuples, in the
+    first tree's order."""
+    return tree_leaves(tree_map(lambda *leaves: leaves, tree, *rest))
 
 
 def tree_leaves(tree) -> list:
@@ -121,17 +129,32 @@ def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
+def _unstack(tree, n: int, device) -> list:
+    """A subtree whose leaves are stacked along a leading axis of ``n`` ->
+    a list of ``n`` subtrees, one per index."""
+    return [tree_map(lambda a, i=i: to_tensor(a[i], device), tree) for i in range(n)]
+
+
 def from_jax(tree: dict[str, Any], cfg: ModelConfig, device="cpu") -> dict:
     """The reference's parameter tree (leaves as numpy arrays) -> the port's.
 
-    ``tree["blocks"]["m{j}"]`` holds layer ``g * period + j`` at index ``g``
-    of its leading axis; ``tree["tail"]["t{i}"]`` holds a remainder layer
-    ``i``.  Both become ``params["layers"][i]``."""
-    period = group_period(cfg)
-    groups = cfg.num_layers // period
-
+    Decoder-only LMs: ``tree["blocks"]["m{j}"]`` holds layer ``g * period +
+    j`` at index ``g`` of its leading axis; ``tree["tail"]["t{i}"]`` holds a
+    remainder layer ``i``.  Both become ``params["layers"][i]``.  An
+    encoder-decoder's ``encoder`` and ``decoder`` are stacked along a
+    leading axis of ``num_encoder_layers`` and ``num_layers``; each becomes
+    a list with one dict per layer, and the other subtrees (embedding,
+    position tables, norms) carry over as they are."""
     def conv(t):
         return tree_map(lambda a: to_tensor(a, device), t)
+
+    if cfg.is_encoder_decoder:
+        out = {k: conv(v) for k, v in tree.items() if k not in ("encoder", "decoder")}
+        out["encoder"] = _unstack(tree["encoder"], cfg.num_encoder_layers, device)
+        out["decoder"] = _unstack(tree["decoder"], cfg.num_layers, device)
+        return out
+    period = group_period(cfg)
+    groups = cfg.num_layers // period
 
     layers = []
     for i in range(cfg.num_layers):

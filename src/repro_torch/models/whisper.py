@@ -1,0 +1,167 @@
+"""Whisper-style encoder-decoder of the port, the counterpart of the
+reference's ``models/whisper.py``.  The conv frontend is a stub: a request
+brings precomputed frame embeddings (B, encoder_seq, d_model).
+
+Encoder: bidirectional attention, learned positions.  Decoder: causal
+self-attention, then cross-attention to the encoder's output, learned
+positions.  Every norm is a LayerNorm and every MLP the biased GELU one
+(``gelu_plain``).  The reference scans stacked layers; here the encoder and
+the decoder are lists with one dict per layer.
+
+Caches are a list with one dict per decoder layer, every leaf with its
+batch axis first: ``{"self": {"k", "v"}, "cross": {"k", "v"}}``.  The
+self-KV has ``max_len`` slots (slot = position), written by prefill and
+then one token a decode step, in place.  The cross-KV has ``encoder_seq``
+slots, projected from the encoder's output once at prefill; decode reads it
+unchanged.
+
+No kernel runs here: the reference takes the plain attention for the
+encoder, the decoder's prefill and decode and the cross-attention alike,
+and the port does the same.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.perf import BASELINE, PerfConfig
+from repro_torch.models import layers as L
+from repro_torch.models import params as P
+
+
+def _enc_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": L.layernorm_specs(cfg.d_model), "mixer": L.attention_specs(cfg),
+            "ln2": L.layernorm_specs(cfg.d_model), "mlp": L.mlp_specs(cfg)}
+
+
+def _dec_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln1": L.layernorm_specs(cfg.d_model), "self": L.attention_specs(cfg),
+            "ln_x": L.layernorm_specs(cfg.d_model),
+            "cross": L.attention_specs(cfg, cross=True),
+            "ln2": L.layernorm_specs(cfg.d_model), "mlp": L.mlp_specs(cfg)}
+
+
+def _qkv(p, h):
+    """Projections without rope.  ``h`` is cast to the weights' dtype: the
+    encoder's first layer normalises bf16 frames, and the reference's
+    einsum promotes them to f32 weights exactly so."""
+    h = h.to(p["wq"].dtype)
+    return L._proj(h, p["wq"]), L._proj(h, p["wk"]), L._proj(h, p["wv"])
+
+
+class EncDec:
+    def __init__(self, cfg: ModelConfig, perf: PerfConfig = BASELINE):
+        self.cfg = cfg
+        self.perf = perf
+
+    # ------------------------------------------------------------- specs
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        D = cfg.d_model
+        return {
+            "embed": L.embed_specs(cfg),
+            "enc_pos": {"table": P.ParamSpec((cfg.encoder_seq, D), ("pos", "embed"),
+                                             init="normal", scale=0.02)},
+            "dec_pos": {"table": P.ParamSpec((cfg.max_position, D), ("pos", "embed"),
+                                             init="normal", scale=0.02)},
+            "encoder": [_enc_block_specs(cfg) for _ in range(cfg.num_encoder_layers)],
+            "enc_norm": L.layernorm_specs(D),
+            "decoder": [_dec_block_specs(cfg) for _ in range(cfg.num_layers)],
+            "final_norm": L.layernorm_specs(D),
+        }
+
+    def cache_specs(self, batch: int, max_len: int) -> list:
+        cfg = self.cfg
+        return [{"self": L.kv_cache_specs(cfg, batch, max_len),
+                 "cross": L.kv_cache_specs(cfg, batch, cfg.encoder_seq)}
+                for _ in range(cfg.num_layers)]
+
+    def supports_paged(self) -> bool:
+        """The encoder's output pins each row's cross-KV: dense rows only, as
+        in the reference."""
+        return False
+
+    # ------------------------------------------------------------- encoder
+    def encode(self, params, frames):
+        """frames (B, encoder_seq, D) -> encoder output (B, encoder_seq, D).
+        Frames and positions are added in bf16 whatever the weights' dtype,
+        as in the reference; the first residual add promotes to f32 weights."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        x = (frames.to(torch.bfloat16)
+             + params["enc_pos"]["table"].to(torch.bfloat16))
+        for p in params["encoder"]:
+            q, k, v = _qkv(p["mixer"], L.layernorm(p["ln1"], x, eps))
+            ctx = L.attention_full(q, k, v, causal=False, q_chunk=self.perf.q_chunk)
+            x = x + L.attn_out(p["mixer"], ctx)
+            x = x + L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], x, eps), cfg)
+        return L.layernorm(params["enc_norm"], x, eps)
+
+    # ------------------------------------------------------------- decoder
+    def _dec_embed(self, params, tokens, positions):
+        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        return x + params["dec_pos"]["table"][positions].to(x.dtype)
+
+    def _decoder(self, params, x, enc_out, *, mode, caches=None, pos=None,
+                 max_len=0, live=None):
+        """Every decoder layer; ``mode`` "prefill" (fresh caches, the
+        cross-KV projected from ``enc_out``) or "decode" (``caches``
+        updated in place).  Returns (x, caches)."""
+        cfg, eps, qc = self.cfg, self.cfg.norm_eps, self.perf.q_chunk
+        new_caches = []
+        for i, p in enumerate(params["decoder"]):
+            q, k, v = _qkv(p["self"], L.layernorm(p["ln1"], x, eps))
+            if mode == "decode":
+                self_c, cross = caches[i]["self"], caches[i]["cross"]
+                L.cache_write_decode(self_c, k, v, pos, live=live)
+                mask = L.cache_valid_mask(self_c, pos)
+                ctx = L.attention_decode(q, self_c["k"].to(q.dtype),
+                                         self_c["v"].to(q.dtype), mask)
+            else:
+                ctx = L.attention_full(q, k, v, causal=True, q_chunk=qc)
+                # the reference's fresh self-KV keeps its spec dtype (bf16)
+                empty = P.init(None, L.kv_cache_specs(cfg, x.shape[0], max_len),
+                               x.device)
+                self_c = L.cache_write_prefill(empty, k, v)
+            x = x + L.attn_out(p["self"], ctx)
+
+            h = L.layernorm(p["ln_x"], x, eps)
+            qx = L._proj(h, p["cross"]["wq"])
+            if mode == "decode":
+                ck, cv = cross["k"].to(qx.dtype), cross["v"].to(qx.dtype)
+            else:
+                ck = L._proj(enc_out, p["cross"]["wk"])
+                cv = L._proj(enc_out, p["cross"]["wv"])
+                cross = {"k": ck, "v": cv}
+            ctx = L.attention_full(qx, ck, cv, causal=False, q_chunk=qc)
+            x = x + L.attn_out(p["cross"], ctx)
+            x = x + L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], x, eps), cfg)
+            new_caches.append({"self": self_c, "cross": cross})
+        return x, new_caches
+
+    def _logits(self, params, x):
+        x = L.layernorm(params["final_norm"], x, self.cfg.norm_eps)
+        return L.unembed_logits(params["embed"], x, self.cfg)[:, 0]
+
+    # ------------------------------------------------------------- public
+    def prefill(self, params, batch, max_len: int, true_len=None):
+        """batch: tokens (B,S), frames (B, encoder_seq, D).  Returns
+        (logits (B,V) f32 at each row's last valid token, fresh caches).
+        ``true_len`` (B,) counts the valid tokens of right-padded rows."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        enc = self.encode(params, batch["frames"])
+        x = self._dec_embed(params, tokens, torch.arange(S, device=tokens.device))
+        x, caches = self._decoder(params, x, enc, mode="prefill", max_len=max_len)
+        idx = (torch.full((B,), S - 1, device=x.device) if true_len is None
+               else (true_len.long() - 1).clamp(min=0))
+        x_last = x[torch.arange(B, device=x.device), idx][:, None]
+        return self._logits(params, x_last), caches
+
+    def decode_step(self, params, tokens, pos, caches, live=None):
+        """tokens (B,1), pos (B,) absolute positions.  ``live`` (B,) bool:
+        False rows take no self-KV write.  Returns (logits (B,V) f32,
+        caches)."""
+        x = self._dec_embed(params, tokens, pos.long()[:, None])
+        x, caches = self._decoder(params, x, None, mode="decode", caches=caches,
+                                  pos=pos, live=live)
+        return self._logits(params, x), caches

@@ -16,7 +16,7 @@ Prefill is a pipeline:
 Two KV backends: ``dense`` (one cache row per request, the default: a
 (max_len, KV, hd) KV row per global attention layer, a ring of the window
 with its slot positions per windowed layer, the recurrent state per SSM
-layer) and ``paged`` (block pools with a prefix cache, copy-on-write of
+layer, an encoder-decoder's self-KV and cross-KV per decoder layer) and ``paged`` (block pools with a prefix cache, copy-on-write of
 shared tails; global-attention decoders only, other models run dense).
 Caches are preallocated tensors updated in place; every cache write a row
 must not take (pad positions, rows that are not live, unmapped blocks) is
@@ -205,9 +205,8 @@ class InferenceEngine:
         """Copy a batched prefill's caches into the pool rows, every leaf
         along its batch axis."""
         idx = self._t(np.asarray(rows, np.int64))
-        for pool, new, axes in zip(self.caches, new_caches, self._batch_axes):
-            for n, t in pool.items():
-                t.index_copy_(axes[n], idx, new[n].to(t.dtype))
+        for t, new, ax in P.tree_zip(self.caches, new_caches, self._batch_axes):
+            t.index_copy_(ax, idx, new.to(t.dtype))
 
     @torch.no_grad()
     def _copy_block(self, src: int, dst: int) -> None:
@@ -381,6 +380,14 @@ class InferenceEngine:
                 if "patches" in req.extras:
                     patches[i] = torch.as_tensor(req.extras["patches"])[0]
             batch["patches"] = patches
+        if self.cfg.is_encoder_decoder:
+            # a request's frames (1, encoder_seq, d_model), zeros where it has none
+            frames = torch.zeros((G, self.cfg.encoder_seq, self.cfg.d_model),
+                                 dtype=torch.float32, device=self.device)
+            for i, req in enumerate(reqs):
+                if "frames" in req.extras:
+                    frames[i] = torch.as_tensor(req.extras["frames"])[0]
+            batch["frames"] = frames
         logits, row_caches = self.model.prefill(
             self.params, batch, self.max_len, true_len=self._t(true))
         self._insert_rows(row_caches, rows)
@@ -494,10 +501,9 @@ class InferenceEngine:
                 # a reused row must not leak its previous occupant's KV,
                 # ring positions or SSM state
                 idx = self._t(np.asarray(fresh, np.int64))
-                for pool, axes, fill in zip(self.caches, self._batch_axes,
-                                            self._reset_vals):
-                    for n, t in pool.items():
-                        t.index_fill_(axes[n], idx, fill[n])
+                for t, ax, fill in P.tree_zip(self.caches, self._batch_axes,
+                                              self._reset_vals):
+                    t.index_fill_(ax, idx, fill)
             logits, _ = self.model.prefill_chunk(
                 self.params, self._t(toks), self._t(pos0), self._t(nval),
                 self.caches)
@@ -981,9 +987,8 @@ class InferenceEngine:
         else:
             idx = self._t(np.asarray([row], np.int64))
             payload["kind"] = "dense"
-            payload["caches"] = [
-                {n: t.index_select(axes[n], idx) for n, t in pool.items()}
-                for pool, axes in zip(self.caches, self._batch_axes)]
+            payload["caches"] = P.tree_map(lambda t, ax: t.index_select(ax, idx),
+                                           self.caches, self._batch_axes)
         if phase == "decode":
             del self.row_req[row]
         else:
@@ -1270,12 +1275,9 @@ class InferenceEngine:
             return self.kv_per_block_bytes() * len(self._row_blocks[row])
         n = int(self.pos[row])
         total = 0
-        for pool, bax, lens in zip(self.caches, self._batch_axes,
-                                   self._seq_lens):
-            for name, t in pool.items():
-                per_row = t.nbytes // t.shape[bax[name]]
-                L = lens[name]
-                if L is not None:
-                    per_row = per_row * min(n, L) // L
-                total += per_row
+        for t, ax, L in P.tree_zip(self.caches, self._batch_axes, self._seq_lens):
+            per_row = t.nbytes // t.shape[ax]
+            if L is not None:
+                per_row = per_row * min(n, L) // L
+            total += per_row
         return total

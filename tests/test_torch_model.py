@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs.perf import BASELINE as JBASELINE
 from repro.models import layers as JL
@@ -209,13 +210,18 @@ def test_lm_modes_match_reference(setup, use_kernels):
             assert not got[unmapped].any() and not ref[unmapped].any()
 
 
-def test_unported_families_raise():
-    for kw in (dict(num_experts=4, experts_per_token=2),
-               dict(family="hybrid", attn_every=8, ssm_state=16),
-               dict(is_encoder_decoder=True)):
-        cfg = dataclasses.replace(get_config("qwen2-0.5b-smoke"), **kw)
-        with pytest.raises(NotImplementedError):
-            make_model(cfg)
-    # the vision prefix is ported; it keeps the dense backend
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_unported_families_raise(arch):
+    """No family is left unported: every arch of the reference's registry
+    builds in the port, its ``-smoke`` config too, and takes the paged
+    backend exactly where the reference does (a vision prefix, SSM state,
+    ring layers and an encoder keep the dense one)."""
+    for name in (arch, arch + "-smoke"):
+        m = make_model(get_config(name))
+        assert m.param_specs()
+        ref = jax_make_model(jax_get_config(name))
+        # the reference's EncDec has no supports_paged: it serves dense only
+        want = ref.supports_paged() if hasattr(ref, "supports_paged") else False
+        assert m.supports_paged() == want
     vlm = dataclasses.replace(get_config("qwen2-0.5b-smoke"), num_vision_tokens=8)
     assert not make_model(vlm).supports_paged()

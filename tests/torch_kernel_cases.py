@@ -28,6 +28,9 @@ FLASH_CASES = [
     # tiles in f32
     (1, 130, 130, 8, 1, 256, 0),       # MQA, rep 8, a row past two tiles
     (1, 320, 320, 8, 4, 256, 100),     # gemma3-4b: rep 2, a window of no whole tile
+    # jamba and mixtral: rep 4 at d = 128; a window over three whole key
+    # tiles and a part of a fourth, ragged S
+    (1, 400, 400, 8, 2, 128, 200),
 ]
 # a q that is a strided view, (B,H,Sq,d) storage read as (B,Sq,H,d)
 FLASH_STRIDED_Q = (2, 96, 96, 14, 2, 64, 0)
@@ -47,6 +50,7 @@ SSD_CASES = [
     (2, 64, 2, 16, 128, 64, 2),
     (1, 512, 2, 64, 64, 128, 2),
     (2, 96, 4, 16, 16, 32, 1),         # grouped: 4 heads read one B/C
+    (1, 128, 128, 64, 16, 64, 1),      # jamba's heads: H = 128, P = 64, N = 16, G = 1
 ]
 SSD_FULL_WIDTH = (2, 512, 48, 64, 128, 256, 1)
 # mamba2's draw of A and dt: da down to -1.6 per token, so that inside a
