@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Nine phases, each fatal on failure:
+Ten phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -93,7 +93,20 @@ Nine phases, each fatal on failure:
            seeded frames: no kernel, a prompt past the largest bucket
            bounced; each decode step profiled against its bound and each
            kernel path held to its plain path (``compare_paths_moe`` on
-           dense paths, ``compare_paths_encdec``).
+           dense paths, ``compare_paths_encdec``);
+10. train  training on the plain paths (no kernel may launch): a train step
+           of qwen2-0.5b at full width cut to 2 layers, f32, on the card
+           held to the same step on the CPU (loss, gradient norm, every
+           gradient leaf, AdamW's update); qwen2-0.5b whole (24 layers,
+           bf16) through ``Trainer`` on ``BigramStream``, B=8, S=1024, 30
+           steps with async checkpoints every 10, losses finite and falling,
+           step wall, tokens/s, busy share, peak memory and the share of the
+           step's bound; a run failing at step 15 and a resume at step 10
+           that repeats the uninterrupted losses under deterministic
+           algorithms, its checkpoint read back onto the CPU bit for bit;
+           mamba2-780m (B=8, S=1024) and whisper-small (B=8, S=448) whole,
+           10 steps each; the kernel wrappers refusing autograd on CUDA
+           inputs; ``python -m repro_torch.launch.train`` on the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -104,14 +117,21 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS reads this when it makes its first handle: a fixed workspace makes
+# its products deterministic, which the training phase's resume check needs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
@@ -2425,6 +2445,363 @@ def phase_zoo(worst):
     return out
 
 
+# ------------------------------------------------------------------ train
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5)
+TRAIN_CHECK = (2, 2, 256)     # layers, B, S of the card step held to the CPU step
+TRAIN_STEP_REL = 1e-4
+TRAIN_QWEN = (8, 1024, 30)    # B, S, steps of qwen2-0.5b whole
+TRAIN_CKPT_EVERY = 10
+TRAIN_FAIL_AT = 15
+TRAIN_RESUME_TOL = 1e-5
+TRAIN_ZOO = ((MAMBA, 8, 1024), (WHISPER, 8, 448))   # arch, B, S; 10 steps each
+TRAIN_ZOO_STEPS = 10
+
+
+def leaf_rel(a_tree, b_tree) -> float:
+    """The largest max |a - b| / max |b| over the leaves (b on the CPU)."""
+    from repro_torch.models import params as P
+
+    return max(float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in P.tree_zip(a_tree, b_tree) if b.numel())
+
+
+def check_train_step():
+    """qwen2-0.5b at full width cut to 2 layers, f32 weights drawn on the
+    card, B=2, S=256: the gradients of the loss on the card and on the CPU
+    (each leaf within 1e-4 of its largest magnitude); one ``train_step`` on
+    each (loss and gradient norm within 1e-4); and AdamW on the card applied
+    to the CPU's gradients against the CPU step's parameters (each leaf
+    within 1e-4).  The updated leaves of the two whole steps are reported:
+    AdamW's first step divides each gradient by its own magnitude, so an
+    entry whose gradient is within rounding of zero may move either way,
+    by up to twice the learning rate, on any two devices or thread
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import make_model
+    from repro_torch.training.data import BigramStream, DataConfig
+    from repro_torch.training.optimizer import AdamWConfig, apply_updates, init_opt_state
+    from repro_torch.training.steps import loss_and_grads, make_train_step
+
+    layers, B, S = TRAIN_CHECK
+    cfg = dataclasses.replace(get_config(QWEN), num_layers=layers)
+    specs = make_model(cfg).param_specs()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    card = P.tree_map(lambda t: t.float(), P.init(gen, specs, DEV))
+    host = P.tree_map(lambda t: t.cpu(), card)
+    batch = BigramStream(cfg, DataConfig(batch=B, seq_len=S), DEV).batch(0)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    opt = AdamWConfig(**TRAIN_OPT)
+    model, step = make_train_step(cfg, opt_cfg=opt)
+
+    def clone(tree):
+        return P.tree_map(lambda t: t.clone(), tree)
+
+    t0 = time.perf_counter()
+    _, _, grads_c = loss_and_grads(model, card, batch)
+    _, _, grads_h = loss_and_grads(model, host, hbatch)
+    pc, _, mc = step(clone(card), init_opt_state(specs, DEV), batch)
+    ph, _, mh = step(clone(host), init_opt_state(specs, "cpu"), hbatch)
+    pa, _, _ = apply_updates(clone(card), P.tree_map(lambda g: g.to(DEV), grads_h),
+                             init_opt_state(specs, DEV), opt)
+    flipped = sum(int(((a.cpu() - p0) * (b - p0) < 0).sum())
+                  for a, b, p0 in P.tree_zip(pc, ph, host))
+    out = {"loss_card": float(mc["loss"]), "loss_cpu": float(mh["loss"]),
+           "loss_rel": abs(float(mc["loss"]) - float(mh["loss"])) / abs(float(mh["loss"])),
+           "grad_norm_rel": abs(float(mc["grad_norm"]) - float(mh["grad_norm"]))
+           / float(mh["grad_norm"]),
+           "grad_leaf_rel": leaf_rel(grads_c, grads_h),
+           "adamw_on_cpu_grads_leaf_rel": leaf_rel(pa, ph),
+           "step_leaf_rel_reported": leaf_rel(pc, ph),
+           "entries_moved_apart_reported": flipped,
+           "s": round(time.perf_counter() - t0, 1)}
+    log(f"[train] {cfg.name} at {layers} layers, f32, B={B}, S={S}, card vs CPU: "
+        f"{json.dumps(out)}")
+    check(out["loss_rel"] <= TRAIN_STEP_REL and out["grad_norm_rel"] <= TRAIN_STEP_REL,
+          f"train step on the card: loss or gradient norm off the CPU's ({out})")
+    check(out["grad_leaf_rel"] <= TRAIN_STEP_REL,
+          f"train step on the card: gradients off the CPU's ({out})")
+    check(out["adamw_on_cpu_grads_leaf_rel"] <= TRAIN_STEP_REL,
+          f"AdamW on the card: updated leaves off the CPU's ({out})")
+    return out
+
+
+def train_work(cfg, B: int, S: int) -> dict:
+    """The operations and bytes of one training step of a decoder-only LM
+    with full remat (``perf.remat = "full"``) and the chunked cross-entropy:
+    the products of every layer (projections, MLP; causal attention pairs)
+    and of the unembedding, forward once, again in the backward pass
+    (recomputed) and twice for the backward itself; the bytes of the weights
+    read in those three passes, the gradients written and AdamW's pass over
+    parameters, gradients and both f32 moments."""
+    from repro_torch.models import params as P
+    from repro_torch.models.lm import make_model
+
+    D, H, KV, hd, F_, V, L_ = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                               cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.num_layers)
+    T = B * S
+    layer = 2 * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F_) * T   # forward
+    attn = 2 * 2 * B * H * hd * S * (S + 1) // 2                        # causal pairs
+    unembed = 2 * B * (S - 1) * D * V
+    model = 3 * (L_ * (layer + attn) + unembed)
+    executed = model + L_ * (layer + attn) + unembed
+    wbytes = P.count_bytes(make_model(cfg).param_specs())
+    n = wbytes // 2                         # bf16 parameters
+    nbytes = 3 * wbytes + wbytes + (2 * wbytes + wbytes + 4 * 4 * n)
+    return {"model_flops": model, "executed_flops": executed, "bytes": nbytes,
+            "matmul_params": L_ * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F_) + D * V}
+
+
+def profile_train_step(step_fn, params, opt_state, batch, wall_ms: float) -> dict:
+    """One more step under torch.profiler: the device rows summed (the
+    device's busy time), its share of ``wall_ms`` (the unprofiled step's
+    wall time: the profiler slows the host), and the ops that hold the
+    device longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    dev_ms = sum(dev_us(e) for e in events if on_device(e)) / 1e3
+    top = [(e.key[:48], round(dev_us(e) / 1e3, 2), e.count)
+           for e in events if dev_us(e) > 0 and not on_device(e)][:8]
+    return {"profiled_step_wall_ms": round(wall * 1e3, 1),
+            "device_ms": round(dev_ms, 1) if dev_ms else "not measured",
+            "busy_share": round(dev_ms / wall_ms, 3) if dev_ms else "not measured",
+            "top_ops_device_ms_and_calls": top}
+
+
+def timed_trainer(trainer, times: list):
+    """Time each ``train_step`` of ``trainer`` (synchronised) into ``times``."""
+    fn = trainer._step_fn
+
+    def step(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    trainer._step_fn = step
+    return trainer
+
+
+def train_qwen_whole(workdir: Path) -> dict:
+    """qwen2-0.5b whole (24 layers, bf16) through ``Trainer`` on
+    ``BigramStream``, B=8, S=1024, 30 steps, async checkpoints every 10,
+    under deterministic algorithms: losses finite and falling; then a run
+    that fails at step 15 and a third ``Trainer`` that resumes at 10 and
+    must repeat the uninterrupted losses of steps 10-29 (1e-5), its
+    restored state first read back onto the CPU bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as P
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer, TrainConfig
+
+    cfg = get_config(QWEN)
+    B, S, steps = TRAIN_QWEN
+    dcfg = DataConfig(batch=B, seq_len=S)
+
+    def trainer(name, **kw):
+        return Trainer(cfg, TrainConfig(steps=steps, ckpt_every=TRAIN_CKPT_EVERY,
+                                        ckpt_dir=str(workdir / name), seed=SEED,
+                                        log_every=TRAIN_CKPT_EVERY),
+                       dcfg, opt=AdamWConfig(**TRAIN_OPT), device=DEV, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        times: list = []
+        t0 = time.perf_counter()
+        ta = timed_trainer(trainer("a"), times)
+        losses = ta.run()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"{cfg.name}: non-finite training losses {losses}")
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        uniform = ta.data.uniform_nll()
+        step_ms = float(np.median(times[1:])) * 1e3
+        log(f"[train] {cfg.name} whole, B={B}, S={S}: losses {[round(x, 4) for x in losses]}; "
+            f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}, uniform ln V "
+            f"{uniform:.4f}")
+        check(last < first, f"{cfg.name}: losses do not fall ({first:.4f} -> {last:.4f})")
+        prof = profile_train_step(ta._step_fn, ta.params, ta.opt_state,
+                                  ta.data.batch(steps), step_ms)
+        del ta
+        shutil.rmtree(workdir / "a")
+
+        with_fail = trainer("b", fail_at_step=TRAIN_FAIL_AT)
+        try:
+            with_fail.run()
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"{cfg.name}: the failing run raised {e!r}")
+        else:
+            check(False, f"{cfg.name}: the run with fail_at_step={TRAIN_FAIL_AT} did not fail")
+        del with_fail
+        release()
+        tc = trainer("b")
+        check(tc.start_step == TRAIN_CKPT_EVERY,
+              f"{cfg.name}: resumed at step {tc.start_step}, not {TRAIN_CKPT_EVERY}")
+        state = {"params": tc.params, "opt": tc.opt_state}
+        host, _ = CKPT.restore(str(workdir / "b"), TRAIN_CKPT_EVERY,
+                               P.tree_map(lambda t: t.cpu(), state), device="cpu")
+        check(all(h.device.type == "cpu" and h.dtype == c.dtype
+                  and torch.equal(h.view(torch.int16) if h.dtype == torch.bfloat16 else h,
+                                  (c.view(torch.int16) if c.dtype == torch.bfloat16 else c).cpu())
+                  for h, c in P.tree_zip(host, state)),
+              f"{cfg.name}: a checkpoint written on the card reads back otherwise on the CPU")
+        resumed = tc.run()
+        diff = float(np.abs(np.array(resumed) - np.array(losses[TRAIN_CKPT_EVERY:])).max())
+        log(f"[train] {cfg.name} resumed at step {tc.start_step} after a failure at "
+            f"{TRAIN_FAIL_AT}: losses of steps {TRAIN_CKPT_EVERY}-{steps - 1} at most "
+            f"{diff:.3e} from the uninterrupted run's (bar {TRAIN_RESUME_TOL})")
+        check(diff <= TRAIN_RESUME_TOL, f"{cfg.name}: resumed losses differ by {diff:.3e}")
+        del tc, state, host
+        shutil.rmtree(workdir / "b")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    work = train_work(cfg, B, S)
+    bound_ms, bound_by = bound(work["bytes"], work["executed_flops"], torch.bfloat16)
+    out = {"steps": steps, "step_wall_ms_median": round(step_ms, 1),
+           "step_wall_ms_first": round(times[0] * 1e3, 1),
+           "loop_s_per_step": round(run_s / steps, 3),
+           "tokens_per_s": round(B * S / step_ms * 1e3, 1),
+           "peak_memory_gib": round(peak / 2**30, 2), **prof,
+           "matmul_params": work["matmul_params"], "model_flops": work["model_flops"],
+           "executed_flops": work["executed_flops"],
+           "step_bound_ms": round(bound_ms, 2), "bound_by": bound_by,
+           "bound_share": round(bound_ms / step_ms, 4),
+           "model_flop_share": round(work["model_flops"] / PEAK_FLOPS[torch.bfloat16]
+                                     / (step_ms / 1e3), 4),
+           "loss_first5": first, "loss_last5": last, "uniform_nll": uniform,
+           "resume_max_diff": diff}
+    log(f"[train] {cfg.name} whole: {json.dumps(out)}")
+    return out
+
+
+def train_zoo_model(arch: str, B: int, S: int, workdir: Path) -> dict:
+    """``TRAIN_ZOO_STEPS`` Trainer steps of a model whole (bf16, seeded
+    frames for whisper): losses finite and falling, step wall, peak, and
+    one more step profiled by op."""
+    from repro_torch.configs import get_config
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer, TrainConfig
+
+    cfg = get_config(arch)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    t = timed_trainer(Trainer(cfg, TrainConfig(steps=TRAIN_ZOO_STEPS,
+                                               ckpt_every=TRAIN_ZOO_STEPS,
+                                               ckpt_dir=str(workdir / arch), seed=SEED,
+                                               log_every=TRAIN_ZOO_STEPS),
+                              DataConfig(batch=B, seq_len=S), opt=AdamWConfig(**TRAIN_OPT),
+                              device=DEV), times)
+    losses = t.run()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{cfg.name}: non-finite training losses {losses}")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    step_ms = float(np.median(times[1:])) * 1e3
+    out = {"B": B, "S": S, "losses": [round(x, 4) for x in losses],
+           "step_wall_ms_median": round(step_ms, 1),
+           "tokens_per_s": round(B * S / step_ms * 1e3, 1),
+           "peak_memory_gib": round(peak / 2**30, 2), "uniform_nll": t.data.uniform_nll(),
+           **profile_train_step(t._step_fn, t.params, t.opt_state,
+                                t.data.batch(TRAIN_ZOO_STEPS), step_ms)}
+    log(f"[train] {cfg.name} whole: {json.dumps(out)}")
+    check(last < first, f"{cfg.name}: losses do not fall ({first:.4f} -> {last:.4f})")
+    del t
+    shutil.rmtree(workdir / arch)
+    return out
+
+
+def check_wrappers_refuse_autograd() -> None:
+    """flash attention and the SSD scan (and paged decode) on CUDA inputs
+    that require grad, under grad mode: each must raise before it launches."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    H, KV, d = QWEN_HEADS
+    q = torch.randn((1, 64, H, d), device=DEV, dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn((1, 64, KV, d), device=DEV, dtype=torch.bfloat16) for _ in range(2))
+    x = torch.randn((1, 64, 4, 64), device=DEV, dtype=torch.bfloat16, requires_grad=True)
+    Bm, Cm = (torch.randn((1, 64, 1, 128), device=DEV, dtype=torch.bfloat16) for _ in range(2))
+    dt = torch.rand((1, 64, 4), device=DEV)
+    pools = [torch.randn((4, 16, KV, d), device=DEV, dtype=torch.bfloat16) for _ in range(2)]
+    table = torch.tensor([[0, 1]], dtype=torch.int32, device=DEV)
+    ctx = torch.tensor([20], dtype=torch.int32, device=DEV)
+    calls = {"flash_attention": lambda: attention(q, k, v),
+             "ssd_scan": lambda: ssd_scan(x, Bm, Cm, dt, -dt, chunk=64),
+             "paged_attention": lambda: paged_decode_attention(q[:, 0], *pools, table, ctx)}
+    ops = kernel_ops()
+    for name, call in calls.items():
+        n0 = ops[name].launches
+        try:
+            call()
+        except RuntimeError as e:
+            check("has no backward" in str(e), f"{name} under autograd raised {e!r}")
+        else:
+            check(False, f"{name} ran under autograd on the card")
+        check(ops[name].launches == n0, f"{name} launched under autograd")
+    log("[train] flash attention, the SSD scan and paged decode refuse autograd on the card")
+
+
+def run_train_launcher(workdir: Path) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen2-0.5b --steps 3`` as a
+    subprocess on the card's default device; it must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", QWEN,
+                        "--steps", "3", "--ckpt-dir", str(workdir / "launcher")],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    log(f"[train] launcher exit {r.returncode} in {time.perf_counter() - t0:.1f} s: {last}")
+    check(r.returncode == 0 and "on cuda" in last,
+          f"the train launcher failed: {r.stdout[-500:]} {r.stderr[-1500:]}")
+    return {"rc": r.returncode, "last_line": last}
+
+
+def phase_train() -> dict:
+    """Training on the card, after every earlier model is freed: a
+    full-width 2-layer f32 step held to the CPU's (:func:`check_train_step`);
+    qwen2-0.5b whole through ``Trainer`` with a failure and a resume
+    (:func:`train_qwen_whole`); mamba2-780m and whisper-small whole, 10
+    steps each; the kernel wrappers under autograd; the train launcher.
+    No kernel may launch: training takes the plain paths."""
+    release()
+    log(f"[train] device memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    ops = kernel_ops()
+    n0 = {name: op.launches for name, op in ops.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        workdir = Path(tmp)
+        out = {"step_check": check_train_step()}
+        release()
+        out["qwen2"] = train_qwen_whole(workdir)
+        for arch, B, S in TRAIN_ZOO:
+            out[arch] = train_zoo_model(arch, B, S, workdir)
+        launches = {name: op.launches - n0[name] for name, op in ops.items()}
+        check(not any(launches.values()), f"a kernel launched in training: {launches}")
+        check_wrappers_refuse_autograd()
+        out["launcher"] = run_train_launcher(workdir)
+    release()
+    out.update(launches=launches, phase_s=round(time.perf_counter() - t0, 1))
+    log(f"[train] {json.dumps({'phase_s': out['phase_s'], 'launches': launches})}")
+    log(f"[train] {gpu_line()}")
+    return out
+
+
 def step_vs_bound(cfg, prof, bound=None) -> dict:
     """A profiled decode step (:func:`profile_decode`) beside the least time
     it can take: ``bound`` (ms, bytes), by default every weight read once at
@@ -2473,6 +2850,7 @@ def main() -> int:
         stats["moe"] = phase_moe()
         stats["gemma3"] = phase_gemma3(worst)
         stats["zoo"] = phase_zoo(worst)
+        stats["train"] = phase_train()
         for name, err in worst.items():
             rows[name]["max_abs_err"] = err
         rows["flash_attention"]["gemma3"] = stats["gemma3"]["flash"]
@@ -2492,6 +2870,7 @@ def main() -> int:
                 "moe_launches": stats["moe"]["launches"][name],
                 "gemma3_launches": stats["gemma3"]["launches"][name],
                 "zoo_launches": stats["zoo"]["launches"][name],
+                "train_launches": stats["train"]["launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

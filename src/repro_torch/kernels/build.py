@@ -108,3 +108,15 @@ def dtype_code(t) -> int:
     if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return code
+
+
+def refuse_autograd(what: str, tensors) -> None:
+    """Raise where autograd would record a call: the kernels write their
+    outputs through raw pointers, so an output has no backward and the
+    gradient through it would silently be zero on the card.  Checked on
+    every device, so the CPU tests see it too.  Training takes the plain
+    paths (the reference's kernels have no VJP either)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: call it under "
+                           "torch.no_grad() or on tensors that do not require "
+                           "grad (training takes the plain path)")

@@ -30,6 +30,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None):
     """Model layout: q (B,Sq,H,d); k,v (B,Skv,KV,d) -> (B,Sq,H,d)."""
     global launches
+    build.refuse_autograd("attention", (q, k, v))
     if all(t.device.type == "cpu" for t in (q, k, v)):
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,

@@ -44,6 +44,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, context_len, *,
     scratch of their shape."""
     global launches
     tensors = (q, k_pages, v_pages, block_table, context_len)
+    build.refuse_autograd("paged_decode_attention", tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    context_len, scale=scale)

@@ -28,6 +28,7 @@ def ssd_scan(x, B, C, dt, da, *, chunk: int):
     aligned x, B, C (TMA); f32 runs the CUDA-core kernel, N <= 128."""
     global launches
     tensors = (x, B, C, dt, da)
+    build.refuse_autograd("ssd_scan", tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_ref(x, B, C, dt, da, chunk=chunk)
     if not all(t.device == x.device and t.device.type == "cuda" for t in tensors):

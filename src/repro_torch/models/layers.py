@@ -1,9 +1,10 @@
-"""Functional layers of the port: what serving runs of the reference's
-``models/layers.py``, for dense GQA decoders (qwen2, gemma), MoE decoders
-with q/k RMSNorm (qwen3-moe), windowed decoders with ring KV caches
-(gemma3, mixtral), a vision prefix under a prefix-LM mask (paligemma), the
-hybrid stack (jamba) and the encoder-decoder (whisper: LayerNorm, a biased
-GELU MLP, cross-attention).
+"""Functional layers of the port: the reference's ``models/layers.py``, for
+dense GQA decoders (qwen2, gemma), MoE decoders with q/k RMSNorm
+(qwen3-moe), windowed decoders with ring KV caches (gemma3, mixtral), a
+vision prefix under a prefix-LM mask (paligemma), the hybrid stack (jamba)
+and the encoder-decoder (whisper: LayerNorm, a biased GELU MLP,
+cross-attention); for training, the chunked cross-entropy and
+rematerialisation.
 
 Conventions follow the reference: activations in the parameter dtype,
 softmax and norm statistics in f32, attention scores accumulated in f32
@@ -15,10 +16,13 @@ bit-identical.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -136,20 +140,35 @@ def _mha_chunk(q, k, v, mask, scale):
     """One (q-chunk, kv-slab) attention with full-row softmax.
 
     q: (B,cq,H,d)  k,v: (B,sk,KV,d)  mask: (B or 1, cq, sk) bool or None.
-    The f32 scores are updated in place, so one (B, heads, cq, sk) tensor
-    of them is alive at a time (serving runs without autograd)."""
+    Without autograd the f32 scores are updated in place, so one (B, heads,
+    cq, sk) tensor of them is alive at a time (serving).  Under autograd
+    (grad enabled and an input that requires grad) every step is out of
+    place: ``exp``'s output is what its backward reads, and an in-place
+    division would overwrite it.  Both forms compute the same numbers."""
     B, cq, H, d = q.shape
     KV = k.shape[2]
     rep = H // KV
     qg = q.reshape(B, cq, KV, rep, d)
-    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32)).mul_(scale)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(f32), k.to(f32))
+    bias = None
     if mask is not None:
-        bias = torch.where(mask, 0.0, NEG).to(f32)            # (B|1, cq, sk)
-        scores.add_(bias[:, None, None, :, :])
-    m = scores.amax(dim=-1, keepdim=True).clamp(min=-1e29)   # guard masked rows
-    e = scores.sub_(m).exp_()
-    s = e.sum(dim=-1, keepdim=True)
-    w = e.div_(s.clamp(min=1e-30)).to(v.dtype)
+        bias = torch.where(mask, 0.0, NEG).to(f32)[:, None, None]   # (B|1,1,1,cq,sk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        scores = scores * scale
+        if bias is not None:
+            scores = scores + bias
+        m = scores.amax(dim=-1, keepdim=True).clamp(min=-1e29)   # guard masked rows
+        e = (scores - m).exp()
+        w = (e / e.sum(dim=-1, keepdim=True).clamp(min=1e-30)).to(v.dtype)
+    else:
+        scores.mul_(scale)
+        if bias is not None:
+            scores.add_(bias)
+        m = scores.amax(dim=-1, keepdim=True).clamp(min=-1e29)
+        e = scores.sub_(m).exp_()
+        s = e.sum(dim=-1, keepdim=True)
+        w = e.div_(s.clamp(min=1e-30)).to(v.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", w, v)
     return out.reshape(B, cq, H, d)
 
@@ -521,3 +540,65 @@ def unembed_logits(p, x, cfg: ModelConfig, *, rows: int = UNEMBED_ROWS):
     w = p["unembed"]
     return torch.cat([xf @ w[:, v0:v0 + rows].to(f32)
                       for v0 in range(0, w.shape[1], rows)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# training: loss and rematerialisation
+# ---------------------------------------------------------------------------
+
+def chunked_xent(p, x, labels, cfg: ModelConfig, *, chunk: int = 512):
+    """Cross-entropy without materialising (B,S,V) logits: a loop over
+    sequence chunks, each recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so one
+    chunk's f32 logits are alive at a time.  S is padded to a whole number
+    of chunks with label -1, as the reference pads, so every chunk has one
+    shape.  x: (B,S,D) final hidden; labels: (B,S), -1 = ignored.  Returns
+    (sum of the nll over valid labels, f32; the count of valid labels)."""
+    B, S, D = x.shape
+    c = min(chunk, S)
+    pad = -S % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+
+    def body(xc, lc):
+        logits = unembed_logits(p, xc, cfg)                       # (B,c,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        lbl = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
+        valid = lc >= 0
+        return torch.where(valid, lse - lbl, 0.0).sum(), valid.sum()
+
+    tot = torch.zeros((), dtype=f32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.long, device=x.device)
+    for s0 in range(0, S + pad, c):
+        nll, n = checkpoint(body, x[:, s0:s0 + c], labels[:, s0:s0 + c],
+                            use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot, cnt
+
+
+REMAT_MODES = ("none", "full", "dots")
+# products without batch dims: the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps exactly these
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(mode: str, fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass:
+    ``"full"`` keeps only the inputs, ``"dots"`` also the outputs of the
+    products without batch dims, ``"none"`` runs ``fn`` as it is.  Every
+    mode computes the same numbers."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r}: expected one of {REMAT_MODES}")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)

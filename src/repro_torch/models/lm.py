@@ -16,6 +16,7 @@ position mod length, ``pos`` the position a slot holds, -1 when empty),
 ``{"h", "conv_x", "conv_B", "conv_C"}`` on SSM layers.
 
 Modes:
+  train         full sequence, no cache, layer groups under remat (``loss``)
   prefill       full sequence; emits fresh per-layer caches
   chunk         a chunk of a long prompt appended into the row caches
   decode        one token per row at per-row positions
@@ -157,6 +158,10 @@ class LM:
                                     ring=ring, q_chunk=perf.q_chunk)
             new_cache = L.cache_write_chunk(cache, k, v, pos, true_len,
                                             ring=ring, slots=slots)
+        elif mode == "train":
+            # the kernels have no backward: the plain attention, no cache
+            ctx = L.attention_full(q, k, v, causal=True, window=window,
+                                   prefix_len=prefix_len, q_chunk=perf.q_chunk)
         else:  # prefill
             # flash has no prefix-LM mask: a vision prefix takes the plain
             # path, as in the reference
@@ -181,6 +186,8 @@ class LM:
             return M.ssd_apply_decode(p, h, cache, cfg, live=live), cache
         if mode == "chunk":
             return M.ssd_apply_chunk(p, h, cache, cfg, true_len=true_len), cache
+        if mode == "train":
+            return M.ssd_apply_full(p, h, cfg, want_state=False, use_kernels=False)
         if mode != "prefill":
             raise ValueError(f"{cfg.name}: SSM layers have no {mode} mode")
         return M.ssd_apply_full(p, h, cfg, want_state=True, true_len=true_len,
@@ -215,11 +222,33 @@ class LM:
             out.append(by_len[key])
         return out
 
+    def _layer(self, i, p, x, *, mode, cache, slots, angles, **kw):
+        """Layer ``i``: mixer and MLP, each behind its norm and residual.
+        Returns (x, the layer's new cache, its MoE aux loss or None)."""
+        cfg, kind = self.cfg, self.kinds[i]
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if kind == "ssm":
+            mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache,
+                                true_len=kw["true_len"], live=kw["live"])
+        else:
+            mix, nc = self._attend(p["mixer"], h, kind, mode=mode, cache=cache,
+                                   slots=slots, angles=angles[self._theta(kind)], **kw)
+        x = x + mix
+        aux = None
+        if self.moes[i]:
+            y, aux = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            x = x + y
+        elif cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
+            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        return x, nc, aux
+
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None,
                prefix_len=0):
         """Run every layer; returns (x, new caches, the MoE layers' summed aux
-        loss), as the reference's trunk does.  Serving ignores aux."""
+        loss), as the reference's trunk does.  Serving ignores aux.  Mode
+        ``train`` writes no cache and runs each group of the reference's
+        scan unit (``params.group_period`` layers) under ``perf.remat``."""
         cfg = self.cfg
         slots = angles = None
         if self.has_attn:
@@ -230,27 +259,33 @@ class LM:
             angles = {th: L.rope_angles(positions, cfg.head_dim, th) if cfg.use_rope
                       else None
                       for th in {self._theta(k) for k in self.kinds if k != "ssm"}}
-        new_caches = []
+        kw = dict(positions=positions, pos=pos, max_len=max_len, true_len=true_len,
+                  block_table=block_table, live=live, prefix_len=prefix_len)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, (p, kind) in enumerate(zip(params["layers"], self.kinds)):
-            h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            cache = None if caches is None else caches[i]
-            if kind == "ssm":
-                mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache,
-                                    true_len=true_len, live=live)
-            else:
-                mix, nc = self._attend(
-                    p["mixer"], h, kind, mode=mode, positions=positions,
-                    cache=cache, pos=pos, max_len=max_len, true_len=true_len,
-                    block_table=block_table, live=live, slots=slots[i],
-                    angles=angles[self._theta(kind)], prefix_len=prefix_len)
+        layers = params["layers"]
+        if mode == "train":
+            def group(x, lo, hi):
+                a = torch.zeros((), dtype=torch.float32, device=x.device)
+                for i in range(lo, hi):
+                    x, _, ai = self._layer(i, layers[i], x, mode=mode, cache=None,
+                                           slots=None, angles=angles, **kw)
+                    if ai is not None:
+                        a = a + ai
+                return x, a
+
+            period, n = P.group_period(cfg), len(layers)
+            for lo in range(0, n, period):
+                x, a = L.remat(self.perf.remat, group, x, lo, min(lo + period, n))
+                aux = aux + a
+            return x, None, aux
+        new_caches = []
+        for i, p in enumerate(layers):
+            x, nc, a = self._layer(i, p, x, mode=mode,
+                                   cache=None if caches is None else caches[i],
+                                   slots=slots[i] if slots else None, angles=angles, **kw)
             new_caches.append(nc)
-            x = x + mix
-            if self.moes[i]:
-                y, a = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-                x, aux = x + y, aux + a
-            elif cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
-                x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            if a is not None:
+                aux = aux + a
         return x, new_caches, aux
 
     def _last_logits(self, params, x, idx):
@@ -278,6 +313,31 @@ class LM:
         return x, positions, prefix
 
     # ------------------------------------------------------------- public
+    def loss(self, params, batch):
+        """batch: tokens (B,S), labels (B,S) (-1 = ignored), a vlm's patches.
+        Returns (mean nll over the valid next-token labels, plus a MoE
+        model's aux loss weighted by ``aux_loss_weight`` and averaged over
+        the layers; metrics {"nll": summed nll, "tokens": valid labels,
+        "aux": summed aux loss}).  A vision prefix's last position predicts
+        the first text token."""
+        cfg = self.cfg
+        x, positions, prefix = self._embed_inputs(params, batch)
+        x, _, aux = self._trunk(params, x, mode="train", positions=positions,
+                                prefix_len=prefix)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if prefix:
+            x = x[:, prefix - 1:-1]   # hidden states predicting each text token
+            labels = batch["labels"]
+        else:
+            x = x[:, :-1]
+            labels = batch["labels"][:, 1:]
+        nll, cnt = L.chunked_xent(params["embed"], x, labels, cfg,
+                                  chunk=self.perf.xent_chunk)
+        loss = nll / cnt.clamp(min=1).to(nll.dtype)
+        if cfg.num_experts:
+            loss = loss + cfg.aux_loss_weight * aux / max(cfg.num_layers, 1)
+        return loss, {"nll": nll, "tokens": cnt, "aux": aux}
+
     def prefill(self, params, batch, max_len: int, true_len=None):
         """Full-sequence prefill.  Returns (last-token logits (B,V) f32, fresh
         per-layer caches: KV of length ``max_len``, SSM state).  ``true_len``

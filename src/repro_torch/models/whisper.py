@@ -17,7 +17,8 @@ unchanged.
 
 No kernel runs here: the reference takes the plain attention for the
 encoder, the decoder's prefill and decode and the cross-attention alike,
-and the port does the same.
+and the port does the same.  ``loss`` trains through the same plain
+attention, the decoder's layers under ``perf.remat``.
 """
 from __future__ import annotations
 
@@ -101,41 +102,63 @@ class EncDec:
         x = L.embed_apply(params["embed"], tokens, self.cfg)
         return x + params["dec_pos"]["table"][positions].to(x.dtype)
 
-    def _decoder(self, params, x, enc_out, *, mode, caches=None, pos=None,
-                 max_len=0, live=None):
-        """Every decoder layer; ``mode`` "prefill" (fresh caches, the
-        cross-KV projected from ``enc_out``) or "decode" (``caches``
-        updated in place).  Returns (x, caches)."""
+    def _dec_layer(self, p, x, enc_out, *, mode, cache=None, pos=None,
+                   max_len=0, live=None):
+        """One decoder layer: causal self-attention, cross-attention to
+        ``enc_out`` (decode reads the cached cross-KV instead), the MLP.
+        Returns (x, the layer's new cache; None in mode "train")."""
         cfg, eps, qc = self.cfg, self.cfg.norm_eps, self.perf.q_chunk
-        new_caches = []
-        for i, p in enumerate(params["decoder"]):
-            q, k, v = _qkv(p["self"], L.layernorm(p["ln1"], x, eps))
-            if mode == "decode":
-                self_c, cross = caches[i]["self"], caches[i]["cross"]
-                L.cache_write_decode(self_c, k, v, pos, live=live)
-                mask = L.cache_valid_mask(self_c, pos)
-                ctx = L.attention_decode(q, self_c["k"].to(q.dtype),
-                                         self_c["v"].to(q.dtype), mask)
-            else:
-                ctx = L.attention_full(q, k, v, causal=True, q_chunk=qc)
+        q, k, v = _qkv(p["self"], L.layernorm(p["ln1"], x, eps))
+        self_c = cross = None
+        if mode == "decode":
+            self_c, cross = cache["self"], cache["cross"]
+            L.cache_write_decode(self_c, k, v, pos, live=live)
+            mask = L.cache_valid_mask(self_c, pos)
+            ctx = L.attention_decode(q, self_c["k"].to(q.dtype),
+                                     self_c["v"].to(q.dtype), mask)
+        else:
+            ctx = L.attention_full(q, k, v, causal=True, q_chunk=qc)
+            if mode == "prefill":
                 # the reference's fresh self-KV keeps its spec dtype (bf16)
                 empty = P.init(None, L.kv_cache_specs(cfg, x.shape[0], max_len),
                                x.device)
                 self_c = L.cache_write_prefill(empty, k, v)
-            x = x + L.attn_out(p["self"], ctx)
+        x = x + L.attn_out(p["self"], ctx)
 
-            h = L.layernorm(p["ln_x"], x, eps)
-            qx = L._proj(h, p["cross"]["wq"])
-            if mode == "decode":
-                ck, cv = cross["k"].to(qx.dtype), cross["v"].to(qx.dtype)
-            else:
-                ck = L._proj(enc_out, p["cross"]["wk"])
-                cv = L._proj(enc_out, p["cross"]["wv"])
+        h = L.layernorm(p["ln_x"], x, eps)
+        qx = L._proj(h, p["cross"]["wq"])
+        if mode == "decode":
+            ck, cv = cross["k"].to(qx.dtype), cross["v"].to(qx.dtype)
+        else:
+            ck = L._proj(enc_out, p["cross"]["wk"])
+            cv = L._proj(enc_out, p["cross"]["wv"])
+            if mode == "prefill":
                 cross = {"k": ck, "v": cv}
-            ctx = L.attention_full(qx, ck, cv, causal=False, q_chunk=qc)
-            x = x + L.attn_out(p["cross"], ctx)
-            x = x + L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], x, eps), cfg)
-            new_caches.append({"self": self_c, "cross": cross})
+        ctx = L.attention_full(qx, ck, cv, causal=False, q_chunk=qc)
+        x = x + L.attn_out(p["cross"], ctx)
+        x = x + L.mlp_apply(p["mlp"], L.layernorm(p["ln2"], x, eps), cfg)
+        return x, None if mode == "train" else {"self": self_c, "cross": cross}
+
+    def _decoder(self, params, x, enc_out, *, mode, caches=None, pos=None,
+                 max_len=0, live=None):
+        """Every decoder layer; ``mode`` "train" (no caches, each layer
+        under ``perf.remat``, as the reference rematerialises its decoder
+        scan's body), "prefill" (fresh caches, the cross-KV projected from
+        ``enc_out``) or "decode" (``caches`` updated in place).  Returns
+        (x, caches; None in mode "train")."""
+        if mode == "train":
+            def layer(p, x, enc_out):
+                return self._dec_layer(p, x, enc_out, mode="train")[0]
+
+            for p in params["decoder"]:
+                x = L.remat(self.perf.remat, layer, p, x, enc_out)
+            return x, None
+        new_caches = []
+        for i, p in enumerate(params["decoder"]):
+            x, c = self._dec_layer(p, x, enc_out, mode=mode,
+                                   cache=None if caches is None else caches[i],
+                                   pos=pos, max_len=max_len, live=live)
+            new_caches.append(c)
         return x, new_caches
 
     def _logits(self, params, x):
@@ -143,6 +166,22 @@ class EncDec:
         return L.unembed_logits(params["embed"], x, self.cfg)[:, 0]
 
     # ------------------------------------------------------------- public
+    def loss(self, params, batch):
+        """batch: frames (B, encoder_seq, D), tokens (B,S), labels (B,S)
+        (-1 = ignored).  Returns (mean next-token nll over the valid labels,
+        metrics {"nll", "tokens", "aux": 0}), as the reference's loss."""
+        tokens = batch["tokens"]
+        enc = self.encode(params, batch["frames"])
+        x = self._dec_embed(params, tokens,
+                            torch.arange(tokens.shape[1], device=tokens.device))
+        x, _ = self._decoder(params, x, enc, mode="train")
+        x = L.layernorm(params["final_norm"], x, self.cfg.norm_eps)
+        nll, cnt = L.chunked_xent(params["embed"], x[:, :-1], batch["labels"][:, 1:],
+                                  self.cfg, chunk=self.perf.xent_chunk)
+        loss = nll / cnt.clamp(min=1).to(nll.dtype)
+        return loss, {"nll": nll, "tokens": cnt,
+                      "aux": torch.zeros((), dtype=nll.dtype, device=nll.device)}
+
     def prefill(self, params, batch, max_len: int, true_len=None):
         """batch: tokens (B,S), frames (B, encoder_seq, D).  Returns
         (logits (B,V) f32 at each row's last valid token, fresh caches).
