@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Ten phases, each fatal on failure:
+Twelve phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -45,21 +45,36 @@ Ten phases, each fatal on failure:
            ms, the payload gather and scatter beside their bound, step wall
            ms by replica count, a profiled window's device busy share and
            served tokens/s;
-6. family  gemma-2b, gemma3-4b and paligemma-3b whole (18, 34 and 18
+6. stages  the paper's stage microservices (``core.microservice``):
+           qwen2-0.5b whole, 8 prompts of 12 to 400 tokens prefilled as one
+           bucket-512 group through ``LM.prefill`` (exactly 24 flash
+           launches), then its decode step through ``StagePipeline`` at 1,
+           2, 4 and 24 stages, bit-equal to the monolithic ``decode_step``
+           with no kernel launched; stage 0 of 4 on 2 replicas (rows 4 + 4)
+           within the bf16 logit bar; the profiler-to-HPA loop (rank
+           ``stage/<i>``, size the hot stage by the latency HPA, scale it);
+           prints each stage count's step wall beside the monolithic one,
+           the per-stage ms by CUDA events and their ranking, the split
+           step's wall and a profiled staged step's device busy share;
+7. examples the four examples (``python -m repro_torch.examples.<name>``)
+           as subprocesses on the card, all at once: each must exit 0;
+8. family  gemma-2b, gemma3-4b and paligemma-3b whole (18, 34 and 18
            layers, head_dim 256; 5.0, 7.8 and 5.0 GB of bf16 weights, each
            freed before the next): flash and paged decode first checked
            alone at head_dim 256 (bf16 and f32) and timed, flash beside SDPA;
            gemma-2b (8 heads over 1) served like qwen2 on the paged then
            the dense backend, exactly 18 paged launches a decode step and
            18 flash a prefill group; gemma3-4b like gemma3-27b below,
-           exactly 34 flash launches a group, 29 of them windowed;
+           exactly 34 flash launches a group, 29 of them windowed, and its
+           staged decode at 2 and 5 stages bit-equal to the monolithic
+           step (ring caches, 4 tail layers on the last stage);
            paligemma-3b through ``InferenceEngine.submit``, 10 requests of
            12 to 500 text tokens, half behind seeded patches, a 513-token
            prompt rejected, no kernel launched (the prefix-LM mask takes
            the plain attention, as in the reference); each decode step
            profiled against the weight-read bound and the kernel path held
            to the plain path (``compare_paths_deep``);
-7. moe     qwen3-moe-30b-a3b whole (48 layers, 128 experts top-8, 61 GB of
+9. moe     qwen3-moe-30b-a3b whole (48 layers, 128 experts top-8, 61 GB of
            bf16 weights drawn on the card after every earlier model is
            freed), served like qwen2 on the paged then the dense backend:
            paged decode must launch 48 times a decode step and flash 48
@@ -68,7 +83,7 @@ Ten phases, each fatal on failure:
            bound; its kernel path held to the plain path at 4 layers and
            to the f32 plain path at the deepest depth that fits
            (``compare_paths_moe``);
-8. gemma3  gemma3-27b whole (62 layers, 52 local with a window of 1024 and
+10. gemma3 gemma3-27b whole (62 layers, 52 local with a window of 1024 and
            10 global, 54 GB of bf16 weights, after qwen3-moe is freed):
            flash first checked alone at its heads (32 over 16, head_dim
            128, B=4, S=2048, windows 1024, 0 and 1000; bf16 and f32) and
@@ -80,7 +95,7 @@ Ten phases, each fatal on failure:
            layers along a bucketed prefill, a chunk and decode across the
            ring's wrap, and to the f32 plain path at the deepest depth that
            fits (``compare_paths_deep``);
-9. zoo     the rest of the model zoo, each model freed before the next:
+11. zoo    the rest of the model zoo, each model freed before the next:
            the SSD scan first checked alone at jamba's heads (H 128, P 64,
            N 16, one group; a right-padded tail too) and flash at 32 heads
            over 8 (head_dim 128) and at a window of 4096 over 8192 tokens,
@@ -94,7 +109,7 @@ Ten phases, each fatal on failure:
            bounced; each decode step profiled against its bound and each
            kernel path held to its plain path (``compare_paths_moe`` on
            dense paths, ``compare_paths_encdec``);
-10. train  training on the plain paths (no kernel may launch): a train step
+12. train  training on the plain paths (no kernel may launch): a train step
            of qwen2-0.5b at full width cut to 2 layers, f32, on the card
            held to the same step on the CPU (loss, gradient norm, every
            gradient leaf, AdamW's update); qwen2-0.5b whole (24 layers,
@@ -105,8 +120,10 @@ Ten phases, each fatal on failure:
            that repeats the uninterrupted losses under deterministic
            algorithms, its checkpoint read back onto the CPU bit for bit;
            mamba2-780m (B=8, S=1024) and whisper-small (B=8, S=448) whole,
-           10 steps each; the kernel wrappers refusing autograd on CUDA
-           inputs; ``python -m repro_torch.launch.train`` on the card.
+           10 steps each, mamba2 also resumed from its step-5 checkpoint
+           (losses within 1e-2 of the loss: its ``cumsum`` has no
+           deterministic CUDA form); the kernel wrappers refusing autograd
+           on CUDA inputs; ``python -m repro_torch.launch.train`` on the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -1439,6 +1456,232 @@ def phase_cluster():
     return summary
 
 
+# ----------------------------------------------------------------- stages
+STAGE_PROMPTS = (12, 40, 64, 100, 180, 256, 300, 400)   # one bucket-512 group
+STAGE_BUCKET = 512
+STAGE_MAX_LEN = 1024
+STAGE_COUNTS = (1, 2, 4, 24)  # 24: the paper's one microservice a layer
+STAGE_SPLIT = 4               # stages of the split check, stage 0 on 2 replicas
+STAGE_STEPS = 10              # timed decode steps of each pipeline
+GEMMA_STAGE_PROMPTS = (1100, 700, 300, 12)   # the first past the ring of 1024
+GEMMA_STAGE_COUNTS = (2, 5)   # gemma3-4b: 5 groups of 6, 4 tail layers on the last
+
+
+def clone_caches(caches) -> list:
+    return [{k: t.clone() for k, t in c.items()} for c in caches]
+
+
+def staged_prefill(cfg, params, lens, bucket: int, max_len: int, seed: int):
+    """Right-padded prompts of ``lens`` tokens as one bucketed prefill group
+    through ``LM.prefill`` (flash on every attention layer): (model, the
+    next tokens (B, 1), their positions, the per-layer caches)."""
+    from repro_torch.models.lm import LM
+
+    m = LM(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (len(lens), bucket), generator=gen, device=DEV)
+    true_len = torch.tensor(lens, device=DEV)
+    logits, caches = m.prefill(params, {"tokens": toks}, max_len, true_len=true_len)
+    return m, logits.argmax(-1)[:, None], true_len, caches
+
+
+def check_staged_bitwise(m, params, tok, pos, caches, counts, tag: str) -> dict:
+    """One decode step through ``StagePipeline`` at each stage count, each
+    from a copy of ``caches``: logits equal the monolithic ``decode_step``'s
+    bit for bit (the same ops on the same shapes), and so do the caches."""
+    from repro_torch.core import StagePipeline
+
+    mono_caches = clone_caches(caches)
+    mono, _ = m.decode_step(params, tok, pos, mono_caches)
+    out = {}
+    for n in counts:
+        pipe = StagePipeline(m, params, n)
+        got, got_caches = pipe.decode_step(tok, pos, clone_caches(caches), now=0.0)
+        same = torch.equal(got, mono) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(got_caches, mono_caches) for k in a)
+        out[n] = {"layer_bounds": pipe.staged.layer_bounds, "bit_equal": same}
+        check(same, f"[{tag}] {m.cfg.name}: a decode step at {n} stages differs from the "
+              f"monolithic step (max |d| {float((got - mono).abs().max()):.3e})")
+    log(f"[{tag}] {m.cfg.name}: staged decode bit-equal to the monolithic step at "
+        f"{list(counts)} stages; layer bounds "
+        f"{json.dumps({n: o['layer_bounds'] for n, o in out.items()})}")
+    return out
+
+
+def time_decode(step, tok, pos, caches, now0: float = 0.0, after_warm=None) -> list[float]:
+    """Wall ms of ``STAGE_STEPS`` synchronised decode steps after one warm
+    step (then ``after_warm()``), from a copy of ``caches``, positions
+    advancing."""
+    c = clone_caches(caches)
+    step(tok, pos, c, now0)
+    torch.cuda.synchronize()
+    if after_warm:
+        after_warm()
+    walls = []
+    for i in range(STAGE_STEPS):
+        t0 = time.perf_counter()
+        step(tok, pos + 1 + i, c, now0 + 1 + i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def profiled_busy(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall ms and the device's
+    busy ms (its kernels and copies summed) and share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(dev_us(e) for e in prof.key_averages()) / 1e3
+    return {"wall_ms": round(wall, 3), "device_busy_ms": round(busy, 3) if busy else "not measured",
+            "busy_share": round(busy / wall, 4) if busy else "not measured"}
+
+
+def phase_stages():
+    """The paper's stage microservices on the card (``core.microservice``):
+    qwen2-0.5b whole (24 layers, bf16, seed-0 weights), 8 prompts of 12 to
+    400 tokens prefilled as one bucket-512 group through ``LM.prefill``
+    (exactly 24 flash launches), then the decode step through
+    ``StagePipeline`` at 1, 2, 4 and 24 stages, bit-equal to the monolithic
+    ``decode_step`` and launching no kernel (dense decode is the plain
+    attention); stage 0 of 4 scaled to 2 replicas (rows 4 + 4) within the
+    bf16 logit bar; the profiler-to-HPA loop of the reference's
+    ``tests/test_engine.py`` (rank ``stage/<i>``, size the hot stage by the
+    latency HPA, scale it); the step walls beside the monolithic one, the
+    per-stage ms by CUDA events and a profiled step's device busy share."""
+    from repro_torch.core import Autoscaler, HPAConfig, Profiler, StagePipeline
+
+    t0 = time.perf_counter()
+    cfg, params = load_model(QWEN)
+    ops = kernel_ops()
+    for op in ops.values():
+        op.launches = 0
+    m, tok, pos, caches = staged_prefill(cfg, params, STAGE_PROMPTS, STAGE_BUCKET,
+                                         STAGE_MAX_LEN, SEED + 21)
+    torch.cuda.synchronize()
+    prefill = {name: op.launches for name, op in ops.items()}
+    check(prefill == {"paged_attention": 0, "flash_attention": cfg.num_layers, "ssd_scan": 0},
+          f"[stages] {cfg.name}: a prefill group launched {prefill}")
+    bitwise = check_staged_bitwise(m, params, tok, pos, caches, STAGE_COUNTS, "stages")
+    torch.cuda.synchronize()
+    launches = {name: op.launches for name, op in ops.items()}
+    decode = {name: launches[name] - prefill[name] for name in launches}
+    check(not any(decode.values()), f"[stages] staged decode launched kernels: {decode}")
+
+    mono_walls = time_decode(lambda t, p, c, now: m.decode_step(params, t, p, c),
+                             tok, pos, caches)
+    out = {"prompts": list(STAGE_PROMPTS), "prefill_launches": prefill,
+           "decode_launches": decode, "bit_equal": bitwise,
+           "monolithic_step_wall_ms": round(float(np.median(mono_walls)), 3),
+           "staged": {}}
+    for n in STAGE_COUNTS:
+        pipe = StagePipeline(m, params, n)
+        walls = time_decode(lambda t, p, c, now: pipe.decode_step(t, p, c, now=now),
+                            tok, pos, caches,
+                            after_warm=lambda: setattr(pipe, "profiler", Profiler()))
+        now = float(STAGE_STEPS)
+        stage_ms = [pipe.profiler.latency[f"stage/{i}"].mean(now) * 1e3
+                    for i in range(pipe.staged.num_stages)]
+        ranked = pipe.profiler.bottlenecks("stage/", now=now)
+        out["staged"][n] = {
+            "step_wall_ms": round(float(np.median(walls)), 3),
+            "stage_ms_sum": round(sum(stage_ms), 3),
+            "stage_ms_mean": [round(x, 4) for x in stage_ms],
+            "ranking_by_max_ms": [(name, round(v * 1e3, 4)) for name, v in ranked[:5]]}
+        log(f"[stages] {n} stages: {json.dumps(out['staged'][n])}")
+
+    # a split stage: stage 0 of 4 on 2 replicas, rows 4 + 4
+    mono, _ = m.decode_step(params, tok, pos, clone_caches(caches))
+    pipe = StagePipeline(m, params, STAGE_SPLIT)
+    pipe.scale_stage(0, 2, now=0.0)
+    got, _ = pipe.decode_step(tok, pos, clone_caches(caches), now=0.0)
+    split_rel = rel(got.float(), mono.float())
+    check(split_rel <= LOGIT_REL_TOL[torch.bfloat16],
+          f"[stages] stage 0 on 2 replicas: logits rel {split_rel:.3e} from the monolithic step")
+    walls = time_decode(lambda t, p, c, now: pipe.decode_step(t, p, c, now=now),
+                        tok, pos, caches)
+    out["split"] = {"stages": STAGE_SPLIT, "stage0_replicas": 2, "rows": [4, 4],
+                    "logits_rel": split_rel,
+                    "step_wall_ms": round(float(np.median(walls)), 3)}
+
+    # the profiler-to-HPA loop (tests/test_engine.py::test_stage_profiler_drives_hpa)
+    pipe = StagePipeline(m, params, cfg.num_layers)
+    c = clone_caches(caches)
+    for i in range(3):
+        pipe.decode_step(tok, pos + i, c, now=float(i))
+    ranked = pipe.profiler.bottlenecks("stage/")
+    hot = int(ranked[0][0].split("/")[1])
+    hpa = Autoscaler(HPAConfig(metric="latency", target=ranked[0][1] / 2,
+                               tolerance=0.0, max_replicas=4))
+    new = hpa.evaluate(3.0, 1, ranked[0][1])
+    check(new >= 2, f"[stages] the HPA sized the hot stage {hot} at {new} replicas")
+    pipe.scale_stage(hot, new, now=3.0)
+    check(len(pipe.replicas[hot]) == new, "[stages] the hot stage was not scaled")
+    logits, _ = pipe.decode_step(tok, pos + 3, c, now=4.0)
+    check(bool(torch.isfinite(logits).all()), "[stages] non-finite logits after scaling")
+    out["hpa"] = {"hot_stage": hot, "hot_max_ms": round(ranked[0][1] * 1e3, 4),
+                  "replicas": new}
+
+    pipe = StagePipeline(m, params, cfg.num_layers)
+    c, mc = clone_caches(caches), clone_caches(caches)
+    out["profiled"] = {
+        "staged_24": profiled_busy(lambda: pipe.decode_step(tok, pos, c, now=0.0)),
+        "monolithic": profiled_busy(lambda: m.decode_step(params, tok, pos, mc))}
+    del params, caches, c, mc, pipe, m
+    release()
+    out.update(launches=launches, phase_s=round(time.perf_counter() - t0, 1))
+    log(f"[stages] {json.dumps({k: out[k] for k in ('monolithic_step_wall_ms', 'split', 'hpa', 'profiled', 'launches', 'phase_s')})}")
+    log(f"[stages] {gpu_line()}")
+    return out
+
+
+# --------------------------------------------------------------- examples
+EXAMPLES = (("quickstart", "served 5/5 requests"), ("serve_autoscaling", "completed 16/16"),
+            ("elastic_failover", "completed to step 15"), ("train_tiny", "loss: "))
+
+
+def phase_examples() -> dict:
+    """The port's four examples (``python -m repro_torch.examples.<name>``)
+    as subprocesses on the card at their smoke sizes, all four at once:
+    each must exit 0 and print its summary."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        procs = {}
+        try:
+            for name, _ in EXAMPLES:
+                args = ["--ckpt-dir", str(Path(tmp) / "ckpt")] if name == "train_tiny" else []
+                f = open(Path(tmp) / f"{name}.log", "w")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+                    stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT), f)
+            for name, (p, f) in procs.items():
+                rc = p.wait(timeout=300)
+                f.close()
+                text = (Path(tmp) / f"{name}.log").read_text()
+                out[name] = {"rc": rc, "s": round(time.perf_counter() - t0, 1),
+                             "last_line": (text.strip().splitlines() or [""])[-1]}
+                log(f"[examples] {name}: exit {rc}: {out[name]['last_line']}")
+                want = dict(EXAMPLES)[name]
+                check(rc == 0 and want in text,
+                      f"example {name} failed (exit {rc}): {text[-1500:]}")
+        finally:
+            for p, f in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                f.close()
+    out["phase_s"] = round(time.perf_counter() - t0, 1)
+    log(f"[examples] {out['phase_s']} s for the four; {gpu_line()}")
+    return out
+
+
 # ----------------------------------------------------------- gemma family
 # weight bytes of the port's specs (bf16 weights, f32 norm scales) of the
 # models drawn whole from here on, or at the depth they are served
@@ -1688,7 +1931,11 @@ def phase_gemma_family(worst):
           f"{cfg.name}: flash calls by window {fw.by_window} for {groups} groups")
     prof = profile_decode(cfg, params, "dense", GEMMA_BUCKETS)
     done(cfg, stats, prof, compare_paths_deep(cfg, params, gemma_path_logits, "family"))
-    del params
+    m, tok, pos, caches = staged_prefill(cfg, params, GEMMA_STAGE_PROMPTS, GEMMA_BUCKETS[-1],
+                                         GEMMA_MAX_LEN, SEED + 22)
+    models[cfg.name]["staged"] = check_staged_bitwise(m, params, tok, pos, caches,
+                                                      GEMMA_STAGE_COUNTS, "family")
+    del params, caches, m
     release()
 
     cfg, params = load_whole("paligemma-3b", "family")
@@ -2455,6 +2702,8 @@ TRAIN_FAIL_AT = 15
 TRAIN_RESUME_TOL = 1e-5
 TRAIN_ZOO = ((MAMBA, 8, 1024), (WHISPER, 8, 448))   # arch, B, S; 10 steps each
 TRAIN_ZOO_STEPS = 10
+TRAIN_ZOO_RESUME = {MAMBA: 5}   # arch: the step a second trainer resumes at
+TRAIN_RESUME_LOSS_REL = 1e-2    # of the loss: bf16 rounding under a nondeterministic cumsum
 
 
 def leaf_rel(a_tree, b_tree) -> float:
@@ -2650,8 +2899,8 @@ def train_qwen_whole(workdir: Path) -> dict:
         check(tc.start_step == TRAIN_CKPT_EVERY,
               f"{cfg.name}: resumed at step {tc.start_step}, not {TRAIN_CKPT_EVERY}")
         state = {"params": tc.params, "opt": tc.opt_state}
-        host, _ = CKPT.restore(str(workdir / "b"), TRAIN_CKPT_EVERY,
-                               P.tree_map(lambda t: t.cpu(), state), device="cpu")
+        host, _ = CKPT.restore_state(str(workdir / "b"), TRAIN_CKPT_EVERY,
+                                     P.tree_map(lambda t: t.cpu(), state), cfg, device="cpu")
         check(all(h.device.type == "cpu" and h.dtype == c.dtype
                   and torch.equal(h.view(torch.int16) if h.dtype == torch.bfloat16 else h,
                                   (c.view(torch.int16) if c.dtype == torch.bfloat16 else c).cpu())
@@ -2690,22 +2939,32 @@ def train_qwen_whole(workdir: Path) -> dict:
 def train_zoo_model(arch: str, B: int, S: int, workdir: Path) -> dict:
     """``TRAIN_ZOO_STEPS`` Trainer steps of a model whole (bf16, seeded
     frames for whisper): losses finite and falling, step wall, peak, and
-    one more step profiled by op."""
+    one more step profiled by op.  An arch of ``TRAIN_ZOO_RESUME`` is also
+    checkpointed at that step, and a second ``Trainer`` resumes there: its
+    losses must stay within ``TRAIN_RESUME_LOSS_REL`` of the uninterrupted
+    run's (an SSM's scan takes a ``cumsum`` with no deterministic CUDA
+    form, so the two differ by rounding; a resume that lost state, fresh
+    moments or a restarted warm-up, differs by far more)."""
     from repro_torch.configs import get_config
     from repro_torch.training.data import DataConfig
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_loop import Trainer, TrainConfig
 
     cfg = get_config(arch)
+    resume_at = TRAIN_ZOO_RESUME.get(arch)
     release()
     torch.cuda.reset_peak_memory_stats()
     times: list = []
-    t = timed_trainer(Trainer(cfg, TrainConfig(steps=TRAIN_ZOO_STEPS,
-                                               ckpt_every=TRAIN_ZOO_STEPS,
-                                               ckpt_dir=str(workdir / arch), seed=SEED,
-                                               log_every=TRAIN_ZOO_STEPS),
-                              DataConfig(batch=B, seq_len=S), opt=AdamWConfig(**TRAIN_OPT),
-                              device=DEV), times)
+
+    def trainer(d):
+        return Trainer(cfg, TrainConfig(steps=TRAIN_ZOO_STEPS,
+                                        ckpt_every=resume_at or TRAIN_ZOO_STEPS,
+                                        ckpt_dir=str(d), seed=SEED,
+                                        log_every=TRAIN_ZOO_STEPS),
+                       DataConfig(batch=B, seq_len=S), opt=AdamWConfig(**TRAIN_OPT),
+                       device=DEV)
+
+    t = timed_trainer(trainer(workdir / arch), times)
     losses = t.run()
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"{cfg.name}: non-finite training losses {losses}")
@@ -2720,6 +2979,25 @@ def train_zoo_model(arch: str, B: int, S: int, workdir: Path) -> dict:
     log(f"[train] {cfg.name} whole: {json.dumps(out)}")
     check(last < first, f"{cfg.name}: losses do not fall ({first:.4f} -> {last:.4f})")
     del t
+    if resume_at:
+        release()
+        step_dir = f"step_{resume_at:08d}"
+        shutil.copytree(workdir / arch / step_dir, workdir / f"{arch}-resume" / step_dir)
+        shutil.rmtree(workdir / arch)
+        t = trainer(workdir / f"{arch}-resume")
+        check(t.start_step == resume_at, f"{cfg.name}: resumed at step {t.start_step}")
+        resumed = t.run()
+        diff = np.abs(np.array(resumed) - np.array(losses[resume_at:]))
+        worst = float((diff / np.abs(losses[resume_at:])).max())
+        out["resume"] = {"at": resume_at, "losses": [round(x, 6) for x in resumed],
+                         "max_abs_diff": float(diff.max()), "max_rel_diff": worst}
+        log(f"[train] {cfg.name} resumed at step {resume_at}: losses of steps {resume_at}-"
+            f"{TRAIN_ZOO_STEPS - 1} at most {float(diff.max()):.3e} ({worst:.3e} of the loss) "
+            f"from the uninterrupted run's (bar {TRAIN_RESUME_LOSS_REL} of the loss)")
+        check(worst <= TRAIN_RESUME_LOSS_REL,
+              f"{cfg.name}: resumed losses differ by {worst:.3e} of the loss")
+        del t
+        arch = f"{arch}-resume"
     shutil.rmtree(workdir / arch)
     return out
 
@@ -2845,6 +3123,8 @@ def main() -> int:
         stats["mamba2"] = phase_mamba()
         log_engine(stats["decode_profile"], stats["mamba2"])
         stats["cluster"] = phase_cluster()
+        stats["stages"] = phase_stages()
+        stats["examples"] = phase_examples()
         worst = {name: rows[name]["max_abs_err"] for name in rows}
         stats["family"] = phase_gemma_family(worst)
         stats["moe"] = phase_moe()
@@ -2866,6 +3146,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": stats[phase]["launches"][name],
                 "cluster_launches": stats["cluster"]["launches"][name],
+                "stages_launches": stats["stages"]["launches"][name],
                 "gemma_family_launches": stats["family"]["launches"][name],
                 "moe_launches": stats["moe"]["launches"][name],
                 "gemma3_launches": stats["gemma3"]["launches"][name],

@@ -55,7 +55,6 @@ class LM:
         self.perf = perf
         self.kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
         self.moes = [cfg.layer_is_moe(i) for i in range(cfg.num_layers)]
-        self.has_attn = any(k != "ssm" for k in self.kinds)
 
     # ------------------------------------------------------------- specs
     def param_specs(self) -> dict:
@@ -193,13 +192,13 @@ class LM:
         return M.ssd_apply_full(p, h, cfg, want_state=True, true_len=true_len,
                                 use_kernels=self.perf.use_kernels)
 
-    def _write_slots(self, mode, C, caches, pos, true_len, block_table, live):
-        """Where this pass's cache writes land, per layer: the same in every
-        layer with a cache of one kind and length, so computed (with its one
-        device sync on global caches) once for each."""
+    def _write_slots(self, mode, C, kinds, caches, pos, true_len, block_table, live):
+        """Where this pass's cache writes land, per layer of ``kinds``: the
+        same in every layer with a cache of one kind and length, so computed
+        (with its one device sync on global caches) once for each."""
         from repro_torch.serving.kv_cache import (paged_write_chunk_slots,
                                                   paged_write_slots)
-        n = len(self.kinds)
+        n = len(kinds)
         if mode == "paged_decode":
             return [paged_write_slots(block_table, pos, caches[0]["k"].shape[1],
                                       live)] * n
@@ -210,7 +209,7 @@ class LM:
             return [None] * n
         by_len: dict = {}
         out = []
-        for cache, kind in zip(caches, self.kinds):
+        for cache, kind in zip(caches, kinds):
             if kind == "ssm":
                 out.append(None)
                 continue
@@ -244,25 +243,29 @@ class LM:
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None,
-               prefix_len=0):
-        """Run every layer; returns (x, new caches, the MoE layers' summed aux
-        loss), as the reference's trunk does.  Serving ignores aux.  Mode
-        ``train`` writes no cache and runs each group of the reference's
-        scan unit (``params.group_period`` layers) under ``perf.remat``."""
+               prefix_len=0, lo=0):
+        """Run the layers of ``params["layers"]`` (and of ``caches``), which
+        are the model's layers ``lo, lo + 1, ...``: every layer by default,
+        a stage's range in ``core.microservice``.  Returns (x, new caches,
+        the MoE layers' summed aux loss), as the reference's trunk does.
+        Serving ignores aux.  Mode ``train`` writes no cache and runs each
+        group of the reference's scan unit (``params.group_period`` layers)
+        under ``perf.remat``."""
         cfg = self.cfg
+        layers = params["layers"]
+        kinds = self.kinds[lo:lo + len(layers)]
         slots = angles = None
-        if self.has_attn:
-            slots = self._write_slots(mode, x.shape[1], caches, pos, true_len,
+        if any(k != "ssm" for k in kinds):
+            slots = self._write_slots(mode, x.shape[1], kinds, caches, pos, true_len,
                                       block_table, live)
             # one rope table for each theta (gemma3: local and global), none
             # without rope (jamba)
             angles = {th: L.rope_angles(positions, cfg.head_dim, th) if cfg.use_rope
                       else None
-                      for th in {self._theta(k) for k in self.kinds if k != "ssm"}}
+                      for th in {self._theta(k) for k in kinds if k != "ssm"}}
         kw = dict(positions=positions, pos=pos, max_len=max_len, true_len=true_len,
                   block_table=block_table, live=live, prefix_len=prefix_len)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        layers = params["layers"]
         if mode == "train":
             def group(x, lo, hi):
                 a = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -274,15 +277,15 @@ class LM:
                 return x, a
 
             period, n = P.group_period(cfg), len(layers)
-            for lo in range(0, n, period):
-                x, a = L.remat(self.perf.remat, group, x, lo, min(lo + period, n))
+            for g0 in range(0, n, period):
+                x, a = L.remat(self.perf.remat, group, x, g0, min(g0 + period, n))
                 aux = aux + a
             return x, None, aux
         new_caches = []
-        for i, p in enumerate(layers):
-            x, nc, a = self._layer(i, p, x, mode=mode,
-                                   cache=None if caches is None else caches[i],
-                                   slots=slots[i] if slots else None, angles=angles, **kw)
+        for j, p in enumerate(layers):
+            x, nc, a = self._layer(lo + j, p, x, mode=mode,
+                                   cache=None if caches is None else caches[j],
+                                   slots=slots[j] if slots else None, angles=angles, **kw)
             new_caches.append(nc)
             if a is not None:
                 aux = aux + a

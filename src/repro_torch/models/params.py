@@ -4,7 +4,9 @@ A model declares its parameters as a tree (dicts and lists) of
 :class:`ParamSpec` leaves.  ``init`` turns the tree into tensors on a
 device, drawing from an explicit ``torch.Generator``.  The port keeps one
 entry per layer (``params["layers"][i]``) where the reference stacks layer
-groups along a leading axis for its ``lax.scan``; ``from_jax`` unstacks.
+groups along a leading axis for its ``lax.scan``; ``from_jax`` and
+``unstack_layers`` unstack, ``stack_layers`` stacks (checkpoints keep the
+reference's layout).
 """
 from __future__ import annotations
 
@@ -129,14 +131,68 @@ def to_tensor(a: np.ndarray, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def _unstack(tree, n: int, device) -> list:
+def _unstack(tree, n: int) -> list:
     """A subtree whose leaves are stacked along a leading axis of ``n`` ->
-    a list of ``n`` subtrees, one per index."""
-    return [tree_map(lambda a, i=i: to_tensor(a[i], device), tree) for i in range(n)]
+    a list of ``n`` subtrees, one per index (views of the stacked
+    tensors)."""
+    return [tree_map(lambda a, i=i: a[i], tree) for i in range(n)]
+
+
+def _stack(trees: list):
+    """A list of subtrees of one structure -> one subtree whose leaves are
+    stacked along a new leading axis."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def stack_layers(params: dict, cfg: ModelConfig) -> dict:
+    """The port's tree (``params["layers"]``, one dict per layer) -> the
+    reference's layout, as its checkpoints hold it: ``blocks["m{j}"]``
+    holds layer ``g * period + j`` at index ``g`` of its leading axis,
+    ``tail["t{i}"]`` a remainder layer ``i``.  An encoder-decoder's
+    ``encoder`` and ``decoder`` lists are stacked whole.  Works on any tree
+    shaped like the parameters (AdamW's moments too)."""
+    if cfg.is_encoder_decoder:
+        return {k: _stack(v) if k in ("encoder", "decoder") else v
+                for k, v in params.items()}
+    period = group_period(cfg)
+    groups = cfg.num_layers // period
+    if not groups:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, fewer than one "
+                         f"group of {period}")
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["blocks"] = {f"m{j}": _stack([layers[g * period + j] for g in range(groups)])
+                     for j in range(period)}
+    if groups * period < cfg.num_layers:
+        out["tail"] = {f"t{i}": layers[i] for i in range(groups * period, cfg.num_layers)}
+    return out
+
+
+def unstack_layers(tree: dict, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`stack_layers`: the reference's layout -> the
+    port's, each layer's leaves views of the stacked tensors."""
+    if cfg.is_encoder_decoder:
+        out = {k: v for k, v in tree.items() if k not in ("encoder", "decoder")}
+        out["encoder"] = _unstack(tree["encoder"], cfg.num_encoder_layers)
+        out["decoder"] = _unstack(tree["decoder"], cfg.num_layers)
+        return out
+    period = group_period(cfg)
+    groups = cfg.num_layers // period
+    layers = []
+    for i in range(cfg.num_layers):
+        if i < groups * period:
+            g, j = divmod(i, period)
+            layers.append(tree_map(lambda a, g=g: a[g], tree["blocks"][f"m{j}"]))
+        else:
+            layers.append(tree["tail"][f"t{i}"])
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "tail")}
+    out["layers"] = layers
+    return out
 
 
 def from_jax(tree: dict[str, Any], cfg: ModelConfig, device="cpu") -> dict:
-    """The reference's parameter tree (leaves as numpy arrays) -> the port's.
+    """The reference's parameter tree (leaves as numpy arrays) -> the port's
+    (:func:`unstack_layers` of its tensors).
 
     Decoder-only LMs: ``tree["blocks"]["m{j}"]`` holds layer ``g * period +
     j`` at index ``g`` of its leading axis; ``tree["tail"]["t{i}"]`` holds a
@@ -145,24 +201,4 @@ def from_jax(tree: dict[str, Any], cfg: ModelConfig, device="cpu") -> dict:
     leading axis of ``num_encoder_layers`` and ``num_layers``; each becomes
     a list with one dict per layer, and the other subtrees (embedding,
     position tables, norms) carry over as they are."""
-    def conv(t):
-        return tree_map(lambda a: to_tensor(a, device), t)
-
-    if cfg.is_encoder_decoder:
-        out = {k: conv(v) for k, v in tree.items() if k not in ("encoder", "decoder")}
-        out["encoder"] = _unstack(tree["encoder"], cfg.num_encoder_layers, device)
-        out["decoder"] = _unstack(tree["decoder"], cfg.num_layers, device)
-        return out
-    period = group_period(cfg)
-    groups = cfg.num_layers // period
-
-    layers = []
-    for i in range(cfg.num_layers):
-        if i < groups * period:
-            g, j = divmod(i, period)
-            layers.append(tree_map(lambda a, g=g: to_tensor(a[g], device),
-                                   tree["blocks"][f"m{j}"]))
-        else:
-            layers.append(conv(tree["tail"][f"t{i}"]))
-    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
-            "layers": layers}
+    return unstack_layers(tree_map(lambda a: to_tensor(a, device), tree), cfg)

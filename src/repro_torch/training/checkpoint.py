@@ -1,16 +1,25 @@
-"""Fault-tolerant checkpointing, the reference's ``training/checkpoint.py``:
-atomic shard files, auto-resume, restore onto any device.
+"""Fault-tolerant checkpointing in the reference's format
+(``training/checkpoint.py`` of the JAX package): atomic shard files,
+auto-resume, restore onto any device.  Either package resumes from what
+the other wrote.
 
-Layout (the reference's):
+Layout:
     <dir>/step_00000120/
         manifest.json      leaf paths, shapes, dtypes, metadata
-        shard_00000.npz    leaf arrays (bf16 stored as its uint16 bits)
+        shard_00000.npz    leaf arrays, ``leaf_{n}`` (bf16 stored as its uint16 bits)
         COMMIT             written last — a checkpoint without it is garbage
+
+Leaves are numbered in ``jax.tree.flatten``'s order: dict keys sorted at
+every level, list entries by index.  The reference restores by that
+number, not by path, so a tree is written in its layout: the trainer
+stacks its per-layer parameters and AdamW moments into layer groups
+first (:func:`reference_layout`, ``params.stack_layers``) and unstacks
+them after a restore (:func:`port_layout`).  A leaf's path joins its keys
+and list indices with "/".
 
 Writes go to ``step_X.tmp`` and are renamed after the COMMIT marker is
 inside, so a crash mid-save can never corrupt the latest checkpoint.
-``restore_latest`` skips uncommitted directories.  A tree is dicts and
-lists of tensors; a leaf's path joins its keys and list indices with "/".
+``restore_latest`` skips uncommitted directories.
 """
 from __future__ import annotations
 
@@ -28,9 +37,9 @@ _SHARD_LEAVES = 1024  # leaves per shard file
 
 
 def _with_paths(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    """(path, leaf) pairs in tree order."""
+    """(path, leaf) pairs in ``jax.tree.flatten``'s order: sorted keys."""
     if isinstance(tree, dict):
-        items = tree.items()
+        items = sorted(tree.items())
     elif isinstance(tree, list):
         items = enumerate(tree)
     else:
@@ -99,36 +108,78 @@ def list_steps(ckpt_dir: str) -> list[int]:
 
 
 def restore(ckpt_dir: str, step: int, like_tree, device=None):
-    """Restore into the structure of ``like_tree``, leaf by path, each leaf
-    in its like leaf's dtype.  ``device`` (the reference's ``shardings``)
+    """Restore into the structure of ``like_tree``, leaf by number as the
+    reference does, each leaf in its like leaf's dtype; a leaf count or a
+    shape that differs raises.  ``device`` (the reference's ``shardings``)
     puts every leaf there; by default each goes where its like leaf is, so
     a checkpoint written on one device restores on another.  Returns
     (tree, manifest)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    arrs: dict[str, np.ndarray] = {}
+    recs = manifest["leaves"]
+    like = _with_paths(like_tree)
+    bad = [p for (p, t), r in zip(like, recs) if list(t.shape) != r["shape"]]
+    if len(like) != len(recs) or bad:
+        raise ValueError(f"checkpoint {d} does not match the tree: {len(recs)} leaves "
+                         f"stored for {len(like)}, shapes differ at {bad[:4]}")
+    arrs: list = [None] * len(recs)
     for si in range(max(manifest["num_shards"], 1)):
         with np.load(os.path.join(d, f"shard_{si:05d}.npz")) as z:
             for name in z.files:
-                rec = manifest["leaves"][int(name[len("leaf_"):])]
-                arrs[rec["path"]] = (z[name], rec["dtype"])
-    like = _with_paths(like_tree)
-    missing = [p for p, _ in like if p not in arrs]
-    if missing or len(arrs) != len(manifest["leaves"]):
-        raise ValueError(f"checkpoint {d} does not match the tree: missing "
-                         f"{missing[:4]}, {len(manifest['leaves'])} leaves stored")
+                arrs[int(name[len("leaf_"):])] = z[name]
 
-    def load(path, like_leaf):
-        a, dtype = arrs[path]
-        t = torch.from_numpy(np.array(a))     # a copy: npz arrays are read-only
-        if dtype == "bfloat16":
+    def load(n, like_leaf):
+        t = torch.from_numpy(np.array(arrs[n]))     # a copy: npz arrays are read-only
+        if recs[n]["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
         dev = like_leaf.device if device is None else device
         return t.to(device=dev, dtype=like_leaf.dtype)
 
-    it = iter(like)
-    return P.tree_map(lambda leaf: load(*next(it)), like_tree), manifest
+    loaded = {p: load(n, t) for n, (p, t) in enumerate(like)}
+    return _map_paths(lambda path, _: loaded[path], like_tree), manifest
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    """``tree`` rebuilt with each leaf replaced by ``fn(path, leaf)``."""
+    def sub(k):
+        return f"{prefix}/{k}" if prefix else str(k)
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(fn, v, sub(i)) for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def reference_layout(state: dict, cfg) -> dict:
+    """A trainer's ``{"params", "opt": {"mu", "nu", "step"}}`` -> the same
+    state in the reference's layout (``params.stack_layers`` of the
+    parameters and of both moments), as its checkpoints hold it."""
+    opt = state["opt"]
+    return {"params": P.stack_layers(state["params"], cfg),
+            "opt": {"mu": P.stack_layers(opt["mu"], cfg),
+                    "nu": P.stack_layers(opt["nu"], cfg), "step": opt["step"]}}
+
+
+def port_layout(state: dict, cfg) -> dict:
+    """The inverse of :func:`reference_layout`."""
+    opt = state["opt"]
+    return {"params": P.unstack_layers(state["params"], cfg),
+            "opt": {"mu": P.unstack_layers(opt["mu"], cfg),
+                    "nu": P.unstack_layers(opt["nu"], cfg), "step": opt["step"]}}
+
+
+def restore_state(ckpt_dir: str, step: int, like_state: dict, cfg, device=None):
+    """Restore a trainer's ``{"params", "opt"}`` written at ``step`` by
+    either package's ``Trainer`` into the port's layout of ``like_state``.
+    The stacked like-tree is built on the meta device, so it costs no
+    memory; the leaves land on ``device``, by default the device of
+    ``like_state``'s leaves.  Returns (state, manifest)."""
+    if device is None:
+        device = P.tree_leaves(like_state)[0].device
+    meta = P.tree_map(lambda t: t.to("meta"), like_state)
+    tree, manifest = restore(ckpt_dir, step, reference_layout(meta, cfg), device)
+    return port_layout(tree, cfg), manifest
 
 
 def restore_latest(ckpt_dir: str, like_tree, device=None):

@@ -9,7 +9,8 @@ trajectory is identical to an uninterrupted run.
 The weights are the port's own seeded ``params.init``, drawn on the
 trainer's device; they differ from the reference's draws (ROADMAP §3).
 ``params`` starts from given weights instead (the parity tests pass the
-reference's through ``from_jax``).
+reference's through ``from_jax``).  Checkpoints are the reference's: each
+package's ``Trainer`` resumes from the other's.
 """
 from __future__ import annotations
 
@@ -65,9 +66,11 @@ class Trainer:
         self.params = params
         self.opt_state = init_opt_state(specs, self.device)
         self.start_step = 0
-        restored, manifest = CKPT.restore_latest(
-            tcfg.ckpt_dir, {"params": self.params, "opt": self.opt_state})
-        if restored is not None:
+        steps = CKPT.list_steps(tcfg.ckpt_dir)
+        if steps:
+            restored, manifest = CKPT.restore_state(
+                tcfg.ckpt_dir, steps[-1], {"params": self.params, "opt": self.opt_state},
+                cfg, self.device)
             self.params, self.opt_state = restored["params"], restored["opt"]
             self.start_step = manifest["step"]
 
@@ -85,7 +88,8 @@ class Trainer:
             if on_step:
                 on_step(step, metrics)
             if (step + 1) % self.tcfg.ckpt_every == 0 or step + 1 == self.tcfg.steps:
-                tree = {"params": self.params, "opt": self.opt_state}
+                tree = CKPT.reference_layout({"params": self.params,
+                                              "opt": self.opt_state}, self.cfg)
                 meta = {"loss": loss, "wall_s": time.time() - t0}
                 if self.tcfg.async_ckpt:
                     self.saver.save(self.tcfg.ckpt_dir, step + 1, tree, meta)

@@ -3,11 +3,18 @@ of ``tests/test_checkpoint.py``: round trips bit for bit, uncommitted
 directories ignored, retention, the async saver (whose snapshot the next
 step's in-place update must not reach), a trainer's crash and restart
 reproducing the uninterrupted loss trajectory, and the train launcher.
+Checkpoints interchange with the reference's, both ways, on
+``qwen2-0.5b-smoke`` and ``mamba2-780m-smoke`` at f32: a trainer of one
+package resumes from the other's checkpoint and repeats the reference's
+uninterrupted losses within 1e-4.
 """
+import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import params as P
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training.data import DataConfig
+from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_loop import Trainer, TrainConfig
 
 REPO = Path(__file__).resolve().parents[1]
@@ -137,7 +145,7 @@ def test_trainer_crash_restart_is_deterministic(tmp_path, async_ckpt):
     assert CKPT.list_steps(b_dir) == [3, 6, 8]
     # the two runs end on the same weights and moments
     like = {"params": t2.params, "opt": t2.opt_state}
-    end_a, _ = CKPT.restore(a_dir, 8, like)
+    end_a, _ = CKPT.restore_state(a_dir, 8, like, t2.cfg)
     for x, y in P.tree_zip(end_a, like):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
 
@@ -176,3 +184,100 @@ def test_train_launcher_refuses_the_cpu_unless_asked(tmp_path):
     assert r.returncode != 0 and "no CUDA device is available" in r.stderr
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _trainer(str(tmp_path / "x"), device=None)
+
+
+# ------------------------------------------------ interchange with the reference
+INTERCHANGE = (6, 3)            # steps, the step a checkpoint is taken at
+INTERCHANGE_OPT = dict(lr=3e-3, warmup_steps=2)
+INTERCHANGE_DATA = dict(batch=2, seq_len=16)
+TRAJ_REL = 1e-4
+
+
+@functools.cache
+def _reference_weights(arch: str):
+    """The reference's seeded weights in f32, rescaled as the training
+    parity tests make them (``test_torch_training._rescaled_f32``)."""
+    import jax
+    from test_torch_training import _rescaled_f32
+
+    from repro.models import params as JP
+    from repro.models.lm import make_model as jax_make_model
+    from repro.configs import get_config as jax_get_config
+
+    specs = jax_make_model(jax_get_config(arch)).param_specs()
+    raw = jax.tree.map(np.asarray, jax.jit(lambda k: JP.init(k, specs))(jax.random.PRNGKey(0)))
+    noise = np.random.default_rng(4)
+    return jax.tree_util.tree_map_with_path(lambda p, a: _rescaled_f32(p, a, noise), raw)
+
+
+def _reference_trainer(arch, ckpt_dir, steps, monkeypatch):
+    """The reference's ``Trainer`` from the f32 weights (its own init swapped
+    for them; a checkpoint in ``ckpt_dir`` still wins), synchronous
+    checkpoints every ``INTERCHANGE[1]`` steps."""
+    import jax.numpy as jnp
+
+    import repro.training.train_loop as JT
+    from repro.configs import get_config as jax_get_config
+    from repro.training.data import DataConfig as JDataConfig
+    from repro.training.optimizer import AdamWConfig as JAdamWConfig
+
+    np32 = _reference_weights(arch)
+    init = types.SimpleNamespace(init=lambda key, specs: P.tree_map(jnp.asarray, np32))
+    monkeypatch.setattr(JT, "P", init)
+    return JT.Trainer(jax_get_config(arch),
+                      JT.TrainConfig(steps=steps, ckpt_every=INTERCHANGE[1],
+                                     ckpt_dir=str(ckpt_dir), log_every=100,
+                                     async_ckpt=False),
+                      JDataConfig(**INTERCHANGE_DATA), opt=JAdamWConfig(**INTERCHANGE_OPT))
+
+
+def _port_trainer(arch, ckpt_dir, steps):
+    return Trainer(get_config(arch),
+                   TrainConfig(steps=steps, ckpt_every=INTERCHANGE[1], ckpt_dir=str(ckpt_dir),
+                               log_every=100, async_ckpt=False),
+                   DataConfig(**INTERCHANGE_DATA), opt=AdamWConfig(**INTERCHANGE_OPT),
+                   device="cpu", params=P.from_jax(_reference_weights(arch), get_config(arch)))
+
+
+@pytest.fixture(scope="module", params=["qwen2-0.5b-smoke", "mamba2-780m-smoke"])
+def uninterrupted(request, tmp_path_factory):
+    """(arch, the reference's uninterrupted losses, its directory holding
+    the checkpoints of steps 3 and 6)."""
+    mp = pytest.MonkeyPatch()
+    d = tmp_path_factory.mktemp("reference")
+    try:
+        losses = _reference_trainer(request.param, d, INTERCHANGE[0], mp).run()
+    finally:
+        mp.undo()
+    assert CKPT.list_steps(str(d)) == [INTERCHANGE[1], INTERCHANGE[0]]
+    return request.param, losses, d
+
+
+def test_port_resumes_from_a_reference_checkpoint(uninterrupted, tmp_path):
+    """The reference's ``Trainer`` saved at step 3 (stacked layer groups,
+    leaves numbered in sorted-key order); the port's resumes there and
+    trains on: its losses are the reference's uninterrupted ones."""
+    arch, losses, ref_dir = uninterrupted
+    k = INTERCHANGE[1]
+    shutil.copytree(ref_dir / f"step_{k:08d}", tmp_path / f"step_{k:08d}")
+    t = _port_trainer(arch, tmp_path, INTERCHANGE[0])
+    assert t.start_step == k
+    assert int(t.opt_state["step"]) == k and t.opt_state["mu"]["layers"][0]["ln1"]["scale"].any()
+    np.testing.assert_allclose(t.run(), losses[k:], rtol=TRAJ_REL)
+
+
+def test_reference_resumes_from_a_port_checkpoint(uninterrupted, tmp_path, monkeypatch):
+    """The port's ``Trainer`` trains 3 steps and saves; the reference's
+    resumes there (by leaf number, as it always restores) and trains on:
+    its losses are its own uninterrupted ones."""
+    arch, losses, _ = uninterrupted
+    k = INTERCHANGE[1]
+    port = _port_trainer(arch, tmp_path, k).run()
+    np.testing.assert_allclose(port, losses[:k], rtol=TRAJ_REL)
+    manifest = json.loads((tmp_path / f"step_{k:08d}" / "manifest.json").read_text())
+    ref_manifest = json.loads((uninterrupted[2] / f"step_{k:08d}" / "manifest.json").read_text())
+    assert [(r["path"], r["shape"], r["dtype"]) for r in manifest["leaves"]] == [
+        (r["path"], r["shape"], r["dtype"]) for r in ref_manifest["leaves"]]
+    t = _reference_trainer(arch, tmp_path, INTERCHANGE[0], monkeypatch)
+    assert t.start_step == k
+    np.testing.assert_allclose(t.run(), losses[k:], rtol=TRAJ_REL)

@@ -269,6 +269,12 @@ class _Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Block())
 import torch
 import chip_smoke  # noqa: F401  (module level only; main() is not run)
+import repro_torch.core  # noqa: F401  (the simulator and the stage pipeline too)
+import repro_torch.examples.elastic_failover  # noqa: F401
+import repro_torch.examples.quickstart  # noqa: F401
+import repro_torch.examples.serve_autoscaling  # noqa: F401
+import repro_torch.examples.train_tiny  # noqa: F401
+import repro_torch.training.train_loop  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.serving import InferenceEngine, Request, SamplingParams
 for arch, backend in (("qwen2-0.5b-smoke", "dense"), ("qwen2-0.5b-smoke", "paged"),
