@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and nvcc.
-Twelve phases, each fatal on failure:
+Thirteen phases, each fatal on failure:
 
 1. build   compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
            (one nvcc per source, in parallel), print the card's name and
@@ -123,7 +123,27 @@ Twelve phases, each fatal on failure:
            10 steps each, mamba2 also resumed from its step-5 checkpoint
            (losses within 1e-2 of the loss: its ``cumsum`` has no
            deterministic CUDA form); the kernel wrappers refusing autograd
-           on CUDA inputs; ``python -m repro_torch.launch.train`` on the card.
+           on CUDA inputs; ``python -m repro_torch.launch.train`` on the card;
+13. fit    the production fit check: ``launch.mesh.HBM_BYTES`` equal to the
+           card's memory; the dry run (``launch/dryrun.py``, the meta
+           device) of qwen2-0.5b decode_32k, prefill_32k and train_4k,
+           mamba2-780m prefill_32k and gemma3-4b long_500k, and of
+           jamba-v0.1-52b decode_32k and mixtral-8x7b long_500k, which must
+           not fit; the five must each be predicted to fit, and run
+           once at full width, under expandable allocator segments (this
+           phase only), with their weights, state and inputs allocated
+           after a reset of the peak
+           (train_4k cut to two micro-batches of 16 x 4096, as the dry
+           run traces it): the predicted peak within 10 % of
+           ``max_memory_allocated``, kernel launches equal to the dry
+           run's meta calls (exactly 24 flash in qwen2's prefill, 48 SSD
+           scans in mamba2's), wall and share of the bound; then flash at
+           qwen2's and gemma-2b's prefill_32k (q of 2^31 elements) and the
+           SSD scan at mamba2's (x of 3.2e9): the last row bit-equal to a
+           one-row call, which holds to the plain version (flash on its
+           last 512 queries), kernel and cuDNN's causal SDPA timed; the
+           bytes the card holds outside the allocator within
+           ``launch.mesh.CONTEXT_BYTES``, the room the dry run leaves it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -340,23 +360,6 @@ def paged_inputs(B, H, KV, d, bs, max_blk, ctx, dtype, gen):
     return q, kp, vp, table, ctx_t
 
 
-def paged_work(B, H, KV, d, max_blk, ctx, itemsize):
-    toks = sum(ctx)
-    nbytes = (2 * B * H * d * itemsize + 2 * toks * KV * d * itemsize
-              + B * max_blk * 4 + B * 4)
-    return nbytes, 4.0 * toks * H * d
-
-
-def flash_work(B, Sq, Skv, H, KV, d, window, itemsize):
-    qpos = np.arange(Sq)[:, None] + (Skv - Sq)
-    kpos = np.arange(Skv)[None, :]
-    vis = kpos <= qpos
-    if window:
-        vis &= kpos > qpos - window
-    nbytes = (2 * B * Sq * H * d + 2 * B * Skv * KV * d) * itemsize
-    return nbytes, 4.0 * B * H * d * float(vis.sum())
-
-
 def ssd_inputs(b, S, H, P, N, G, dtype, gen, tail=0, strong=False):
     """At the reference test's scales; dt = 0 and x = 0 on row 0's last
     ``tail`` positions (the model's true_len masking).  ``strong``: the
@@ -394,16 +397,6 @@ def ssd_recurrence(x, B, C, dt, da):
     return torch.stack(ys, 1), h
 
 
-def ssd_work(b, S, H, P, N, G, Q, itemsize):
-    """Bytes (x, B, C unexpanded, dt, da read; y, h_last written, f32) and
-    the reference's chunked products at chunk Q: C B^T, M (x dt), C h and
-    the state update, for every head."""
-    nbytes = (b * S * H * P * itemsize + 2 * b * S * G * N * itemsize
-              + 2 * b * S * H * 4 + b * S * H * P * 4 + b * H * P * N * 4)
-    flops = 2.0 * b * (S // Q) * H * (Q * Q * N + Q * Q * P + 2 * Q * P * N)
-    return nbytes, flops
-
-
 def check_ssd_cases(H, P, N, G, cases, gen, worst, tag: str) -> None:
     """The SSD scan against its plain version at heads (H, P, N, G), bf16 and
     f32, over ``cases`` of (b, S, chunk, dt0_tail, strong_decay)."""
@@ -436,7 +429,7 @@ def time_ssd(b, S, H, P, N, G, Q, gen) -> dict:
 
     def kernel():
         return ssd_ops.ssd_scan(*args, chunk=Q)
-    b_ms, b_by = bound(*ssd_work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
+    b_ms, b_by = bound(*ssd_ops.work(b, S, H, P, N, G, Q, 2), torch.bfloat16)
     dev, names = device_profile(kernel)
     return dict(shape=f"b={b} S={S} H={H} P={P} N={N} G={G}", ms=cuda_ms(kernel),
                 plain_ms=cuda_ms(lambda: ssd_scan_ref(*args, chunk=Q), iters=20),
@@ -523,7 +516,7 @@ def time_flash(B, S, H, KV, d, gen, window: int = 0):
     plain = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=True, window=window),
                     iters=5 if S > 1024 else 20)
     lib = cuda_ms(sdpa)
-    b_ms, b_by = bound(*flash_work(B, S, S, H, KV, d, window, 2), dtype)
+    b_ms, b_by = bound(*flash_ops.work(B, S, S, H, KV, d, window, 2), dtype)
     return dict(shape=f"B={B} S={S} H={H} KV={KV} d={d} window={window}", ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 device_ms=device_ms(kernel), library_device_ms=device_ms(sdpa))
@@ -565,7 +558,7 @@ def time_paged(H, KV, d, gen, by_uniform_ctx: bool):
         return paged_ops.paged_decode_attention(*args)
     ms = cuda_ms(paged)
     plain = cuda_ms(lambda: paged_attention_ref(*args), iters=20)
-    b_ms, b_by = bound(*paged_work(B, H, KV, d, max_blk, PAGED_CTX, 2), dtype)
+    b_ms, b_by = bound(*paged_ops.work(B, H, KV, d, max_blk, PAGED_CTX, 2), dtype)
     dev, names = device_profile(paged)
     check(len(names) == 1, f"paged_attention: {len(names)} kernels per call: {names}")
     row = dict(shape=f"B={B} H={H} KV={KV} d={d} bs={bs} max_blk={max_blk} "
@@ -3080,6 +3073,252 @@ def phase_train() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ fit
+# the cells run for real after the dry run: each must be predicted to fit
+FIT_CELLS = ((QWEN, "decode_32k"), (QWEN, "prefill_32k"), (MAMBA, "prefill_32k"),
+             (QWEN, "train_4k"), ("gemma3-4b", "long_500k"))
+FIT_MISFITS = (("jamba-v0.1-52b", "decode_32k"), ("mixtral-8x7b", "long_500k"))
+FIT_LAUNCHES = {(QWEN, "prefill_32k"): {"flash_attention": 24},
+                (MAMBA, "prefill_32k"): {"ssd_scan": 48}}
+FIT_PEAK_TOL = 0.10           # predicted peak within 10 % of the card's
+FIT_FAR_QUERIES = 512         # right-aligned queries of the plain flash check
+FIT_FLASH = (("qwen2-0.5b", 32, 32768, *QWEN_HEADS), ("gemma-2b", 32, 32768, 8, 1, 256))
+FIT_SSD = (32, 32768, 48, 64, 128, 1, 256)   # mamba2 prefill_32k: b, S, H, P, N, G, chunk
+
+
+def outside_allocator() -> int:
+    """Bytes in use on the card that the caching allocator does not hold:
+    the CUDA context, loaded modules, library handles."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free - torch.cuda.memory_reserved()
+
+
+def fit_args(cell, gen):
+    """Real arguments of ``cell.fn`` on the card in the shapes and dtypes of
+    its meta ones: the port's seeded init for the weights, AdamW's zeroed
+    moments, caches as their specs make them (zeros; -1 in a ring's
+    positions), random tokens and labels, decode at the context's last
+    position."""
+    from repro_torch.models import params as P
+    from repro_torch.training import optimizer as OPT
+
+    cfg, shape = cell.cfg, cell.shape
+    specs = cell.model.param_specs()
+    params = P.init(gen, specs, DEV)
+
+    def real(t):
+        if t.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen, device=DEV,
+                                 dtype=torch.int32)
+        return (torch.randn(t.shape, generator=gen, device=DEV) * 0.02).to(t.dtype)
+
+    if shape.kind == "decode":
+        _, tokens, _, caches = cell.args
+        real_caches = P.init(None, cell.model.cache_specs(shape.global_batch,
+                                                          shape.seq_len), DEV)
+        for r, m in zip(P.tree_leaves(real_caches), P.tree_leaves(caches)):
+            check(r.shape == m.shape and r.dtype == m.dtype, "cache specs differ")
+        pos = torch.full((shape.global_batch,), shape.seq_len - 1, dtype=torch.int32,
+                         device=DEV)
+        return params, real(tokens), pos, real_caches
+    batch = {k: real(v) for k, v in cell.args[-1].items()}
+    if shape.kind == "train":
+        return params, OPT.init_opt_state(specs, DEV), batch
+    return params, batch
+
+
+def fit_run(cell, rec) -> dict:
+    """One call of the cell's step on the card, its weights, state and
+    inputs allocated inside the window: the peak of
+    ``max_memory_allocated`` over what was allocated before, beside the
+    dry run's prediction; the call's wall by CUDA events; kernel launches.
+    The garbage collector is held off, as in the trace."""
+    ops = kernel_ops()
+    release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gc.disable()
+    try:
+        args = fit_args(cell, torch.Generator(device=DEV).manual_seed(SEED))
+        n0 = {name: op.launches for name, op in ops.items()}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = cell.fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {name: op.launches - n0[name] for name, op in ops.items()}
+        result = out[2]["loss"] if cell.shape.kind == "train" else out[1]   # logits
+        finite = bool(torch.isfinite(result).all())
+        del args, out, result
+    finally:
+        gc.enable()
+    release()
+    pred = rec["memory"]["peak_bytes"]
+    flops = rec.get("traced", {}).get("flops", rec["flops_per_device"])
+    nbytes = rec.get("traced", {}).get("bytes", rec["bytes_per_device"])
+    wall = start.elapsed_time(end)
+    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+    row = {"cell": f"{cell.cfg.name} {cell.shape.name}",
+           "predicted_gib": round(pred / 2**30, 3), "measured_gib": round(peak / 2**30, 3),
+           "ratio": round(pred / peak, 4), "wall_ms": round(wall, 2),
+           "flops": flops, "bytes": nbytes, "bound_ms": round(b_ms, 3), "bound_by": b_by,
+           "share_of_bound": round(b_ms / wall, 4), "launches": launches,
+           "predicted_launches": rec["kernels"]}
+    if cell.traced_microbatches:
+        row["rows"] = cell.args[-1]["tokens"].shape[0]
+    log(f"[fit] {json.dumps(row)}")
+    check(finite, f"{row['cell']}: the step's output is not finite")
+    check(abs(pred / peak - 1) <= FIT_PEAK_TOL,
+          f"{row['cell']}: predicted peak {pred} B against {peak} B measured")
+    want = FIT_LAUNCHES.get((cell.cfg.name, cell.shape.name), {})
+    check(launches == {k: rec["kernels"].get(k, 0) for k in launches}
+          and all(launches[k] == n for k, n in want.items()),
+          f"{row['cell']}: launches {launches}, the dry run's {rec['kernels']}, want {want}")
+    return row
+
+
+def fit_far_row_flash(arch, B, S, H, KV, d, gen, worst) -> dict:
+    """Flash at a prefill_32k shape, past 2^31 elements at gemma-2b's: the
+    last batch row bit-equal to a one-row call on that row, that call's
+    last ``FIT_FAR_QUERIES`` queries within the bf16 bar of the plain
+    version against all S keys; kernel and cuDNN's causal SDPA timed."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    dt = torch.bfloat16
+    q = torch.randn((B, S, H, d), generator=gen, device=DEV, dtype=dt)
+    k = torch.randn((B, S, KV, d), generator=gen, device=DEV, dtype=dt)
+    v = torch.randn((B, S, KV, d), generator=gen, device=DEV, dtype=dt)
+    out = flash_ops.attention(q, k, v)
+    one = flash_ops.attention(q[-1:], k[-1:], v[-1:])
+    torch.cuda.synchronize()
+    same = torch.equal(out[-1:], one)
+    n = FIT_FAR_QUERIES
+    ref = attention_ref(q[-1:, -n:].transpose(1, 2), k[-1:].transpose(1, 2),
+                        v[-1:].transpose(1, 2)).transpose(1, 2)
+    err, ok = max_err(one[:, -n:], ref, TOL[("flash", dt)])
+    worst["flash_attention"] = max(worst["flash_attention"], err)
+    del out, one, ref
+    ms = cuda_ms(lambda: flash_ops.attention(q, k, v), iters=3, warmup=1)
+    try:
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True), iters=3, warmup=1)
+    except torch.OutOfMemoryError:
+        lib = None
+    b_ms, b_by = bound(*flash_ops.work(B, S, S, H, KV, d, 0, 2), dt)
+    row = {"kernel": "flash_attention", "shape": f"{arch} prefill_32k: B={B} S={S} H={H} "
+           f"KV={KV} d={d}", "q_elements": q.numel(), "last_row_bit_equal": same,
+           "max_abs_err": err, "ms": ms, "library_ms": lib, "bound_ms": b_ms,
+           "bound_by": b_by, "share_of_bound": round(b_ms / ms, 4),
+           "plain_ms": "not measured: its f32 scores need "
+                       f"{B * H * S * S * 4 / 1e12:.1f} TB"}
+    log(f"[fit] {json.dumps(row)}")
+    del q, k, v
+    release()
+    check(same, f"flash at {row['shape']}: the last row differs from a one-row call")
+    check(ok, f"flash at {row['shape']}: the far row disagrees with its plain version")
+    return row
+
+
+def fit_far_row_ssd(gen, worst) -> dict:
+    """The SSD scan at mamba2's prefill_32k shape (x holds 3.2e9 elements):
+    the last row's y and h_last bit-equal to a one-row call on that row,
+    which is within 2e-4 of the plain version; the kernel timed."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    b, S, H, P_, N, G, Q = FIT_SSD
+    args = ssd_inputs(b, S, H, P_, N, G, torch.bfloat16, gen)
+    y, h = ssd_ops.ssd_scan(*args, chunk=Q)
+    last = [t[-1:] for t in args]
+    y1, h1 = ssd_ops.ssd_scan(*last, chunk=Q)
+    torch.cuda.synchronize()
+    same = torch.equal(y[-1:], y1) and torch.equal(h[-1:], h1)
+    del y, h
+    yr, hr = ssd_scan_ref(*last, chunk=Q)
+    (ey, oky), (eh, okh) = max_err(y1, yr, TOL[("ssd", torch.bfloat16)]), \
+        max_err(h1, hr, TOL[("ssd", torch.bfloat16)])
+    worst["ssd_scan"] = max(worst["ssd_scan"], ey, eh)
+    del y1, h1, yr, hr
+    ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=Q), iters=3, warmup=1)
+    b_ms, b_by = bound(*ssd_ops.work(b, S, H, P_, N, G, Q, 2), torch.bfloat16)
+    row = {"kernel": "ssd_scan", "shape": f"mamba2-780m prefill_32k: b={b} S={S} H={H} "
+           f"P={P_} N={N} G={G}", "x_elements": args[0].numel(), "last_row_bit_equal": same,
+           "max_abs_err": max(ey, eh), "ms": ms, "library_ms": None, "bound_ms": b_ms,
+           "bound_by": b_by, "share_of_bound": round(b_ms / ms, 4)}
+    log(f"[fit] {json.dumps(row)}")
+    del args
+    release()
+    check(same, "ssd_scan at mamba2 prefill_32k: the last row differs from a one-row call")
+    check(oky and okh, "ssd_scan at mamba2 prefill_32k: the far row disagrees with its "
+                       "plain version")
+    return row
+
+
+def phase_fit(worst) -> dict:
+    """The production fit check: the dry run (``launch/dryrun.py``, meta
+    device) predicts each cell's peak; the cells predicted to fit run once
+    for real at full width, and each prediction is held to the card's
+    ``max_memory_allocated`` within ``FIT_PEAK_TOL``; two cells must be
+    predicted not to fit.  Then both kernels past 2^31 elements."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.build import build_cell
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[fit] {gpu_line()}: total_memory {total:,} B, mesh.HBM_BYTES {M.HBM_BYTES:,} B")
+    check(M.HBM_BYTES == total, f"mesh.HBM_BYTES {M.HBM_BYTES} is not the card's {total}")
+    mesh = M.make_production_mesh()
+    recs = {}
+
+    def predict(arch, shape) -> bool:
+        rec = dryrun.run_cell(arch, shape, mesh, "h100", verbose=False)
+        check(rec["status"] == "ok", f"dry run of {arch} {shape}: {rec}")
+        recs[arch, shape] = rec
+        log(f"[fit] predicted {arch} {shape}: peak "
+            f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, fits {rec['fits_hbm']}, "
+            f"trace {rec['trace_s']} s")
+        return rec["fits_hbm"]
+
+    for key in FIT_MISFITS:
+        check(not predict(*key), f"{key} is predicted to fit one card")
+    for key in FIT_CELLS:
+        check(predict(*key), f"{key} is predicted not to fit one card")
+    release()
+    context = [outside_allocator()]
+    # segments that grow by mapping pages, for this phase only: under the
+    # default allocator mamba2-780m prefill_32k (68.5 GiB allocated at its
+    # peak) found 13.7 GiB free in pieces and no 12 GiB block
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        ops = kernel_ops()
+        n0 = {name: op.launches for name, op in ops.items()}
+        rows = [fit_run(build_cell(get_config(arch), SHAPES[shape], mesh),
+                        recs[arch, shape]) for arch, shape in FIT_CELLS]
+        launches = {name: op.launches - n0[name] for name, op in ops.items()}
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+        far = [fit_far_row_flash(*c, gen, worst) for c in FIT_FLASH]
+        far.append(fit_far_row_ssd(gen, worst))
+        context.append(outside_allocator())
+    finally:
+        release()
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
+    log(f"[fit] {gpu_line()}: held outside the allocator {context} B (before the "
+        f"cells, after the far rows), mesh.CONTEXT_BYTES {M.CONTEXT_BYTES:,} B")
+    check(max(context) <= M.CONTEXT_BYTES,
+          f"the card holds {max(context)} B outside the allocator, more than "
+          f"mesh.CONTEXT_BYTES {M.CONTEXT_BYTES}")
+    out = {"cells": rows, "far_rows": far, "launches": launches,
+           "outside_allocator_bytes": context,
+           "phase_s": round(time.perf_counter() - t0, 1)}
+    log(f"[fit] {json.dumps({'phase_s': out['phase_s'], 'launches': launches})}")
+    return out
+
+
 def step_vs_bound(cfg, prof, bound=None) -> dict:
     """A profiled decode step (:func:`profile_decode`) beside the least time
     it can take: ``bound`` (ms, bytes), by default every weight read once at
@@ -3131,6 +3370,7 @@ def main() -> int:
         stats["gemma3"] = phase_gemma3(worst)
         stats["zoo"] = phase_zoo(worst)
         stats["train"] = phase_train()
+        stats["fit"] = phase_fit(worst)
         for name, err in worst.items():
             rows[name]["max_abs_err"] = err
         rows["flash_attention"]["gemma3"] = stats["gemma3"]["flash"]
@@ -3152,6 +3392,7 @@ def main() -> int:
                 "gemma3_launches": stats["gemma3"]["launches"][name],
                 "zoo_launches": stats["zoo"]["launches"][name],
                 "train_launches": stats["train"]["launches"][name],
+                "fit_launches": stats["fit"]["launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,16 @@
-"""Architecture registry: every arch of the reference (``<arch>-smoke`` too)."""
+"""Architecture registry: every arch of the reference (``<arch>-smoke`` too),
+and the (arch x shape) cells of the production dry run."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    reduced,
+    shape_supported,
+)
 
 _ARCH_MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
@@ -30,3 +37,13 @@ def get_config(arch: str) -> ModelConfig:
     cfg: ModelConfig = mod.CONFIG
     cfg.validate()
     return cfg
+
+
+def arch_shape_cells(include_skipped: bool = False):
+    """All (arch, shape) cells; 40 total, with documented skips filtered."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            ok, reason = shape_supported(cfg, shape)
+            if ok or include_skipped:
+                yield arch, shape.name, ok, reason

@@ -4,6 +4,8 @@ Each architecture contributes one module in this package exporting
 ``CONFIG`` (exact published dims) — see the per-arch files.  ``reduced()``
 derives a structure-preserving tiny variant for CPU smoke tests.  The
 fields mirror the reference package's config field for field.
+``SHAPES`` are the production input shapes that the dry run
+(``launch/dryrun.py``) traces each arch at.
 """
 from __future__ import annotations
 
@@ -106,6 +108,37 @@ class ModelConfig:
                 assert self.num_heads % self.num_kv_heads == 0
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Archs allowed to run long_500k (sub-quadratic / bounded-window attention).
+_SUBQUADRATIC = {
+    "mamba2-780m", "jamba-v0.1-52b", "mixtral-8x7b", "gemma3-27b", "gemma3-4b",
+}
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(supported, reason-if-not); the reasons are the reference's, word
+    for word (its DESIGN.md §4 documents the skips)."""
+    if shape.name == "long_500k" and cfg.name not in _SUBQUADRATIC:
+        return False, "pure full-attention arch: 500k decode KV unbounded (DESIGN.md §4)"
+    if cfg.is_encoder_decoder and shape.name == "long_500k":
+        return False, "enc-dec decoder context architecturally capped"
+    return True, ""
+
+
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Structure-preserving tiny variant for CPU smoke tests.
 
@@ -152,3 +185,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         num_vision_tokens=8 if cfg.num_vision_tokens else 0,
         max_position=4096,
     )
+
+
+def model_flops_per_token(cfg: ModelConfig, n_params_active: int) -> float:
+    """MODEL_FLOPS/token = 6*N_active (train) — roofline 'useful flops' basis."""
+    return 6.0 * n_params_active

@@ -6,16 +6,38 @@ strides and mask the ragged edges themselves, so nothing is transposed or
 padded on the GPU.  The dtype alone picks the kernel: bf16 runs the
 tensor-core (``wgmma``) kernel, whose operands arrive by TMA, so d must be a
 multiple of 16 and every base and stride 16-byte aligned; f32 runs the
-CUDA-core kernel.  ``launches`` counts kernel launches.
+CUDA-core kernel.  ``launches`` counts kernel launches.  On ``meta``
+tensors (the dry run) nothing launches: the shapes are checked, the
+output is a meta tensor and :func:`work` goes to ``kernels.meta``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+
+
+def visible_pairs(Sq: int, Skv: int, window: int = 0, causal: bool = True) -> int:
+    """(query, key) pairs the kernel attends: queries right-aligned to the
+    keys (query i sits at position i + Skv - Sq), each seeing the keys at
+    or before it under ``causal`` and, with a window, the last ``window``
+    of them."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def work(B, Sq, Skv, H, KV, d, window, itemsize, causal: bool = True):
+    """(bytes, flops) of one call: q and k, v read once and the output
+    written once; two products of 2 d flops for every visible pair of
+    every head."""
+    nbytes = (2 * B * Sq * H * d + 2 * B * Skv * KV * d) * itemsize
+    return nbytes, 4.0 * B * H * d * visible_pairs(Sq, Skv, window, causal)
 
 
 def _strides(t) -> tuple[int, int, int]:
@@ -36,8 +58,9 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                             v.transpose(1, 2), causal=causal, window=window,
                             scale=scale)
         return out.transpose(1, 2)
-    if not all(t.device == q.device and t.device.type == "cuda" for t in (q, k, v)):
-        raise ValueError("attention: q, k, v must be on one CUDA device, got "
+    if not all(t.device == q.device and t.device.type in ("cuda", "meta")
+               for t in (q, k, v)):
+        raise ValueError("attention: q, k, v must be on one CUDA (or meta) device, got "
                          f"{[str(t.device) for t in (q, k, v)]}")
     B, Sq, H, d = q.shape
     _, Skv, KV, _ = k.shape
@@ -62,6 +85,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                              f"got strides {[t.stride() for t in (q, k, v)]}")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        meta.report("flash_attention",
+                    *work(B, Sq, Skv, H, KV, d, window, q.element_size(), causal))
+        return out
     fn = build.launcher("flash_attention")
     rc = fn(*ptrs, out.data_ptr(), B, Sq, Skv, H, KV, d, *st,
             float(scale), int(causal), int(window), code,

@@ -3,13 +3,15 @@ on CPU tensors.
 
 ``launches`` counts the kernel launches of this wrapper (reset it to 0 to
 count a window).  A CUDA tensor never reaches the plain version: it
-launches the kernel or raises.
+launches the kernel or raises.  On ``meta`` tensors (the dry run) nothing
+launches: the shapes are checked, the output is a meta tensor and
+:func:`work` goes to ``kernels.meta``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 launches = 0
@@ -19,6 +21,17 @@ HEADS_PER_BLOCK = 8      # csrc/paged_attention.cu: kRep
 # (0 between calls: each call leaves the ones it takes at 0), then the
 # splits' partial (max, sum) pairs and accumulators
 _scratch: dict[tuple, torch.Tensor] = {}
+
+
+def work(B, H, KV, d, max_blk, ctx, itemsize):
+    """(bytes, flops) of one call over live contexts ``ctx`` (one per row):
+    q read and the output written once, every live token's k and v read
+    once, the block table and the lengths read; two products of 2 d flops
+    for every live token of every head."""
+    toks = sum(ctx)
+    nbytes = (2 * B * H * d * itemsize + 2 * toks * KV * d * itemsize
+              + B * max_blk * 4 + B * 4)
+    return nbytes, 4.0 * toks * H * d
 
 
 def _scratch_ptrs(device, n_cnt: int, n_ml: int, n_acc: int) -> tuple[int, int, int]:
@@ -49,9 +62,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, context_len, *,
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    context_len, scale=scale)
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    if dev.type not in ("cuda", "meta") or any(t.device != dev for t in tensors):
         raise ValueError("paged_decode_attention: all inputs must be on one "
-                         f"CUDA device, got {[str(t.device) for t in tensors]}")
+                         f"CUDA (or meta) device, got {[str(t.device) for t in tensors]}")
     B, H, d = q.shape
     nb, bs, KV, d2 = k_pages.shape
     max_blk = block_table.shape[1]
@@ -72,6 +85,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, context_len, *,
                          "with 16-byte rows, and the pools 16-byte aligned")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention takes contiguous tensors")
+    if dev.type == "meta":
+        # the lengths have no values here: count every row's table full
+        meta.report("paged_attention", *work(B, H, KV, d, max_blk, [max_blk * bs] * B,
+                                             k_pages.element_size()))
+        return torch.empty_like(q)
     scale = d ** -0.5 if scale is None else scale
     n_split = max(1, -(-max_blk * bs // TOKENS_PER_SPLIT))
     n_rows = B * KV * -(-(H // KV) // HEADS_PER_BLOCK)    # (row, kv head group)s

@@ -3,18 +3,31 @@ version on CPU tensors.
 
 B and C are taken unexpanded, (b, S, G, N), so the caller never copies
 them per head.  ``launches`` counts kernel launches.  A CUDA tensor never
-reaches the plain version: it launches the kernel or raises.
+reaches the plain version: it launches the kernel or raises.  On ``meta``
+tensors (the dry run) nothing launches: the shapes are checked, the
+outputs are meta tensors and :func:`work` goes to ``kernels.meta``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 launches = 0
 MAX_STATE = 128          # both kernels cover N <= 128
 MAX_HEAD_DIM_BF16 = 64   # the bf16 (wgmma) kernel's instance: P <= 64
+
+
+def work(b, S, H, P, N, G, Q, itemsize):
+    """(bytes, flops) of one call: x, B, C (unexpanded), dt, da read and y,
+    h_last (f32) written once; the reference's chunked products at chunk Q:
+    C B^T once per group (B and C are shared by the group's heads), and
+    M (x dt), C h and the state update for every head."""
+    nbytes = (b * S * H * P * itemsize + 2 * b * S * G * N * itemsize
+              + 2 * b * S * H * 4 + b * S * H * P * 4 + b * H * P * N * 4)
+    flops = 2.0 * b * (S // Q) * (G * Q * Q * N + H * (Q * Q * P + 2 * Q * P * N))
+    return nbytes, flops
 
 
 def ssd_scan(x, B, C, dt, da, *, chunk: int):
@@ -31,8 +44,9 @@ def ssd_scan(x, B, C, dt, da, *, chunk: int):
     build.refuse_autograd("ssd_scan", tensors)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_ref(x, B, C, dt, da, chunk=chunk)
-    if not all(t.device == x.device and t.device.type == "cuda" for t in tensors):
-        raise ValueError("ssd_scan: all inputs must be on one CUDA device, got "
+    if not all(t.device == x.device and t.device.type in ("cuda", "meta")
+               for t in tensors):
+        raise ValueError("ssd_scan: all inputs must be on one CUDA (or meta) device, got "
                          f"{[str(t.device) for t in tensors]}")
     b, S, H, P = x.shape
     G, N = B.shape[-2:]
@@ -58,6 +72,9 @@ def ssd_scan(x, B, C, dt, da, *, chunk: int):
                          f"aligned x, B, C; got P={P}, N={N}")
     y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        meta.report("ssd_scan", *work(b, S, H, P, N, G, chunk, x.element_size()))
+        return y, h_last
     fn = build.launcher("ssd_scan")
     rc = fn(x.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
             da.data_ptr(), y.data_ptr(), h_last.data_ptr(),

@@ -4,10 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 12
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --stream
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --dryrun
 
 ``--stream`` serves through the OpenAI-style completions front-end
 (serving/api.py) and prints SSE frames as tokens are emitted — per-token
-streaming over the cluster, migrations included.
+streaming over the cluster, migrations included.  ``--dryrun`` traces the
+full-width decode step at the production shape (decode_32k) on the meta
+device against one H100's memory (``launch/dryrun.py``) and exits; it needs
+no GPU.
 """
 from __future__ import annotations
 
@@ -124,21 +128,23 @@ def main(argv=None):
                     help="torch device of the replicas (default: the GPU; "
                          "no GPU is an error, never a fall-back to the CPU)")
     ap.add_argument("--dryrun", action="store_true",
-                    help="not available: the production-size fit check is "
-                         "not ported")
+                    help="trace the production decode step on the meta device "
+                         "against the card's memory and exit")
     ap.add_argument("--trace-out", default=None,
                     help="write the request-lifecycle trace as Chrome/"
                          "Perfetto trace-event JSON to this path")
     ap.add_argument("--metrics-out", default=None,
                     help="write a Prometheus text exposition of the cluster "
                          "metrics registry to this path")
+    ap.add_argument("--perf", nargs="*", default=[],
+                    help="k=v PerfConfig overrides of the dry run")
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        print("--dryrun is not available: the production-size fit check "
-              "(meta-device build against the card's memory) is not ported",
-              file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun as DR
+        return DR.main(["--arch", args.arch, "--shape", "decode_32k",
+                        "--mesh", "h100"] +
+                       (["--perf"] + args.perf if args.perf else []))
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device

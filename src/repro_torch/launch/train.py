@@ -5,8 +5,11 @@ the GPU unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --device cpu
 
 A second run on the same ``--ckpt-dir`` resumes from its last committed
-checkpoint.  ``--production`` and ``--dryrun`` (the reference's production
-mesh and compile check) are not ported.
+checkpoint.  ``--production`` or ``--dryrun`` traces the full-width train
+step at the production shape (train_4k) on the meta device against one
+H100's memory (``launch/dryrun.py``) and exits; it needs no GPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --production
 """
 from __future__ import annotations
 
@@ -29,16 +32,20 @@ def main(argv=None):
                     help="torch device to train on (default: the GPU; no GPU "
                          "is an error, never a fall-back to the CPU)")
     ap.add_argument("--production", action="store_true",
-                    help="not available: the production mesh is not ported")
+                    help="the full config at the production shape on the "
+                         "one-card mesh: a dry run (same as --dryrun)")
     ap.add_argument("--dryrun", action="store_true",
-                    help="not available: the production-size compile check "
-                         "is not ported")
+                    help="trace the production train step on the meta device "
+                         "against the card's memory and exit")
+    ap.add_argument("--perf", nargs="*", default=[],
+                    help="k=v PerfConfig overrides of the dry run")
     args = ap.parse_args(argv)
 
     if args.production or args.dryrun:
-        print("--production and --dryrun are not available: the production "
-              "mesh and its fit check are not ported", file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun as DR
+        return DR.main(["--arch", args.arch, "--shape", "train_4k",
+                        "--mesh", "h100"] +
+                       (["--perf"] + args.perf if args.perf else []))
 
     from repro_torch.configs import get_config
     from repro_torch.training.data import DataConfig

@@ -211,7 +211,9 @@ def ssd_apply_full(p, x, cfg: ModelConfig, *, want_state: bool = False,
                          f"receptive field {K - 1}")
     if true_len is None:
         def tail(t):
-            return t[:, S - (K - 1):]
+            # a copy: a view would keep the whole (B,S,...) projection alive
+            # for as long as the cache lives
+            return t[:, S - (K - 1):].clone()
     else:
         # per-row last K-1 valid raw projections (pre-conv)
         idx = (lead + true_len.long()[:, None] - (K - 1)

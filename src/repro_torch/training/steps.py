@@ -43,6 +43,19 @@ def loss_and_grads(model, params, batch):
             P.tree_map(lambda _: next(it), live))
 
 
+def grad_accumulator(params, dtype):
+    """Zeros shaped like the parameters, in the accumulator's dtype."""
+    return P.tree_map(lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device),
+                      params)
+
+
+def mean_grads(acc, n: int):
+    """The summed gradients of ``n`` micro-batches -> their mean, in f32
+    and cast back to the accumulator's dtype."""
+    inv = 1.0 / n
+    return P.tree_map(lambda g: (g.to(f32) * inv).to(g.dtype), acc)
+
+
 def make_train_step(cfg: ModelConfig, perf: PerfConfig = BASELINE,
                     opt_cfg: AdamWConfig = AdamWConfig()):
     """Returns (model, train_step); ``train_step(params, opt_state, batch)``
@@ -53,17 +66,15 @@ def make_train_step(cfg: ModelConfig, perf: PerfConfig = BASELINE,
 
     def train_step(params, opt_state, batch):
         if perf.microbatch > 1:
-            acc = P.tree_map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device),
-                             params)
+            acc = grad_accumulator(params, adt)
             lsum = torch.zeros((), dtype=f32, device=batch["tokens"].device)
             tok = 0
             for mb in _split_micro(batch, perf.microbatch):
                 loss, metrics, grads = loss_and_grads(model, params, mb)
                 acc = P.tree_map(lambda a, g: a + g.to(adt), acc, grads)
                 lsum, tok = lsum + loss, tok + metrics["tokens"]
-            inv = 1.0 / perf.microbatch
-            grads = P.tree_map(lambda g: (g.to(f32) * inv).to(g.dtype), acc)
-            loss = lsum * inv
+            grads = mean_grads(acc, perf.microbatch)
+            loss = lsum * (1.0 / perf.microbatch)
             metrics = {"loss": loss, "tokens": tok}
         else:
             loss, metrics, grads = loss_and_grads(model, params, batch)

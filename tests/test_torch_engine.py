@@ -243,9 +243,12 @@ def test_completions_api_over_port_engine(weights):
 
 def test_entry_points_refuse_cpu_fallback():
     """Without a GPU, an engine that is not asked for the CPU raises; a
-    tensor that is not on the CPU never reaches a plain kernel version."""
+    tensor that is not on the CPU never reaches a plain kernel version:
+    inputs split across devices raise, and ``meta`` inputs (the dry run)
+    take the wrapper's meta branch, which reports the kernel's work."""
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.launch.cost import OpCounter
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(get_config(ARCH))
@@ -253,11 +256,16 @@ def test_entry_points_refuse_cpu_fallback():
     pool = torch.empty((4, 8, 1, 16), device="meta")
     tbl = torch.empty((2, 3), dtype=torch.int32, device="meta")
     ctx = torch.empty((2,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        paged_decode_attention(q, pool, pool, tbl, ctx)
     x = torch.empty((1, 8, 4, 16), device="meta")
     with pytest.raises(ValueError):
-        attention(x, x[:, :, :1], x[:, :, :1])
+        paged_decode_attention(q, pool, pool, tbl, torch.zeros((2,), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        attention(x, torch.zeros((1, 8, 1, 16)), x[:, :, :1])
+    with OpCounter() as c:
+        out = paged_decode_attention(q, pool, pool, tbl, ctx)
+        o2 = attention(x, x[:, :, :1], x[:, :, :1])
+    assert c.kernels == {"paged_attention": 1, "flash_attention": 1}
+    assert out.device.type == o2.device.type == "meta"
 
 
 _NO_JAX = """
