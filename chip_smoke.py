@@ -143,7 +143,21 @@ Thirteen phases, each fatal on failure:
            one-row call, which holds to the plain version (flash on its
            last 512 queries), kernel and cuDNN's causal SDPA timed; the
            bytes the card holds outside the allocator within
-           ``launch.mesh.CONTEXT_BYTES``, the room the dry run leaves it.
+           ``launch.mesh.CONTEXT_BYTES``, the room the dry run leaves it;
+           then rank 0 of three cells on the reference's pod meshes of
+           H100s (``distributed/spmd.py``), at full width over torch's fake
+           process group on the card (its collectives allocate their
+           outputs and move nothing, so the cells' logits are checked
+           only for finiteness, and each kernel is held to its plain
+           version at the local shapes the cells call it at):
+           qwen3-moe-30b-a3b prefill_32k on 16x16 (8 of 128
+           experts, 2 query heads, 48 flash launches), gemma3-27b
+           decode_32k on 16x16 (ring and global caches split over the
+           model axis, the softmax merged across it) and jamba-v0.1-52b
+           prefill_32k on 2x16x16 (local SSM and query heads, 4 flash and
+           28 SSD-scan launches, the pod axis): each predicted per-card
+           peak within 10 % of ``max_memory_allocated`` and its launches
+           equal to the dry run's meta calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -3082,6 +3096,12 @@ FIT_LAUNCHES = {(QWEN, "prefill_32k"): {"flash_attention": 24},
                 (MAMBA, "prefill_32k"): {"ssd_scan": 48}}
 FIT_PEAK_TOL = 0.10           # predicted peak within 10 % of the card's
 FIT_FAR_QUERIES = 512         # right-aligned queries of the plain flash check
+# rank 0 of these run on the card over the fake process group: (arch,
+# shape, mesh name) -> the kernel launches its program must make
+SHARDED_CELLS = {("qwen3-moe-30b-a3b", "prefill_32k", "16x16"): {"flash_attention": 48},
+                 ("gemma3-27b", "decode_32k", "16x16"): {},
+                 ("jamba-v0.1-52b", "prefill_32k", "2x16x16"):
+                     {"flash_attention": 4, "ssd_scan": 28}}
 FIT_FLASH = (("qwen2-0.5b", 32, 32768, *QWEN_HEADS), ("gemma-2b", 32, 32768, 8, 1, 256))
 FIT_SSD = (32, 32768, 48, 64, 128, 1, 256)   # mamba2 prefill_32k: b, S, H, P, N, G, chunk
 
@@ -3127,19 +3147,29 @@ def fit_args(cell, gen):
     return params, batch
 
 
-def fit_run(cell, rec) -> dict:
+def fit_args_sharded(cell, gen):
+    """Real local shards of one device on the card
+    (``build.real_local_args``: weights drawn at 0.02, caches empty,
+    decode at the context's last position)."""
+    from repro_torch.launch.build import real_local_args
+
+    return real_local_args(cell, DEV, gen)
+
+
+def fit_run(cell, rec, make_args=fit_args, want=None) -> dict:
     """One call of the cell's step on the card, its weights, state and
     inputs allocated inside the window: the peak of
     ``max_memory_allocated`` over what was allocated before, beside the
-    dry run's prediction; the call's wall by CUDA events; kernel launches.
-    The garbage collector is held off, as in the trace."""
+    dry run's prediction; the call's wall by CUDA events; kernel launches
+    (exactly ``want`` where given).  The garbage collector is held off, as
+    in the trace."""
     ops = kernel_ops()
     release()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     gc.disable()
     try:
-        args = fit_args(cell, torch.Generator(device=DEV).manual_seed(SEED))
+        args = make_args(cell, torch.Generator(device=DEV).manual_seed(SEED))
         n0 = {name: op.launches for name, op in ops.items()}
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -3159,7 +3189,8 @@ def fit_run(cell, rec) -> dict:
     nbytes = rec.get("traced", {}).get("bytes", rec["bytes_per_device"])
     wall = start.elapsed_time(end)
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-    row = {"cell": f"{cell.cfg.name} {cell.shape.name}",
+    row = {"cell": f"{cell.cfg.name} {cell.shape.name}"
+                   + (f" {rec['mesh']} rank 0" if cell.spmd is not None else ""),
            "predicted_gib": round(pred / 2**30, 3), "measured_gib": round(peak / 2**30, 3),
            "ratio": round(pred / peak, 4), "wall_ms": round(wall, 2),
            "flops": flops, "bytes": nbytes, "bound_ms": round(b_ms, 3), "bound_by": b_by,
@@ -3167,22 +3198,26 @@ def fit_run(cell, rec) -> dict:
            "predicted_launches": rec["kernels"]}
     if cell.traced_microbatches:
         row["rows"] = cell.args[-1]["tokens"].shape[0]
+    if cell.spmd is not None:
+        row["collectives"] = rec["collectives"]
     log(f"[fit] {json.dumps(row)}")
     check(finite, f"{row['cell']}: the step's output is not finite")
     check(abs(pred / peak - 1) <= FIT_PEAK_TOL,
           f"{row['cell']}: predicted peak {pred} B against {peak} B measured")
-    want = FIT_LAUNCHES.get((cell.cfg.name, cell.shape.name), {})
+    if want is None:
+        want = FIT_LAUNCHES.get((cell.cfg.name, cell.shape.name), {})
     check(launches == {k: rec["kernels"].get(k, 0) for k in launches}
           and all(launches[k] == n for k, n in want.items()),
           f"{row['cell']}: launches {launches}, the dry run's {rec['kernels']}, want {want}")
     return row
 
 
-def fit_far_row_flash(arch, B, S, H, KV, d, gen, worst) -> dict:
-    """Flash at a prefill_32k shape, past 2^31 elements at gemma-2b's: the
-    last batch row bit-equal to a one-row call on that row, that call's
-    last ``FIT_FAR_QUERIES`` queries within the bf16 bar of the plain
-    version against all S keys; kernel and cuDNN's causal SDPA timed."""
+def fit_far_row_flash(label, B, S, H, KV, d, gen, worst, window=0) -> dict:
+    """Flash at a prefill shape (past 2^31 elements at gemma-2b's
+    prefill_32k): the last batch row bit-equal to a one-row call on that
+    row, that call's last ``FIT_FAR_QUERIES`` queries within the bf16 bar
+    of the plain version against all S keys; kernel and cuDNN's causal SDPA
+    (none with a window) timed."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -3190,30 +3225,33 @@ def fit_far_row_flash(arch, B, S, H, KV, d, gen, worst) -> dict:
     q = torch.randn((B, S, H, d), generator=gen, device=DEV, dtype=dt)
     k = torch.randn((B, S, KV, d), generator=gen, device=DEV, dtype=dt)
     v = torch.randn((B, S, KV, d), generator=gen, device=DEV, dtype=dt)
-    out = flash_ops.attention(q, k, v)
-    one = flash_ops.attention(q[-1:], k[-1:], v[-1:])
+    out = flash_ops.attention(q, k, v, window=window)
+    one = flash_ops.attention(q[-1:], k[-1:], v[-1:], window=window)
     torch.cuda.synchronize()
     same = torch.equal(out[-1:], one)
     n = FIT_FAR_QUERIES
     ref = attention_ref(q[-1:, -n:].transpose(1, 2), k[-1:].transpose(1, 2),
-                        v[-1:].transpose(1, 2)).transpose(1, 2)
+                        v[-1:].transpose(1, 2), window=window).transpose(1, 2)
     err, ok = max_err(one[:, -n:], ref, TOL[("flash", dt)])
     worst["flash_attention"] = max(worst["flash_attention"], err)
     del out, one, ref
-    ms = cuda_ms(lambda: flash_ops.attention(q, k, v), iters=3, warmup=1)
-    try:
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True), iters=3, warmup=1)
-    except torch.OutOfMemoryError:
-        lib = None
-    b_ms, b_by = bound(*flash_ops.work(B, S, S, H, KV, d, 0, 2), dt)
-    row = {"kernel": "flash_attention", "shape": f"{arch} prefill_32k: B={B} S={S} H={H} "
-           f"KV={KV} d={d}", "q_elements": q.numel(), "last_row_bit_equal": same,
+    ms = cuda_ms(lambda: flash_ops.attention(q, k, v, window=window), iters=3, warmup=1)
+    lib = None
+    if not window:
+        try:
+            lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True), iters=3, warmup=1)
+        except torch.OutOfMemoryError:
+            pass
+    b_ms, b_by = bound(*flash_ops.work(B, S, S, H, KV, d, window, 2), dt)
+    row = {"kernel": "flash_attention", "shape": f"{label}: B={B} S={S} H={H} "
+           f"KV={KV} d={d}" + (f" window={window}" if window else ""),
+           "q_elements": q.numel(), "last_row_bit_equal": same,
            "max_abs_err": err, "ms": ms, "library_ms": lib, "bound_ms": b_ms,
            "bound_by": b_by, "share_of_bound": round(b_ms / ms, 4),
            "plain_ms": "not measured: its f32 scores need "
-                       f"{B * H * S * S * 4 / 1e12:.1f} TB"}
+                       f"{B * H * S * S * 4 / 1e9:.1f} GB"}
     log(f"[fit] {json.dumps(row)}")
     del q, k, v
     release()
@@ -3222,15 +3260,15 @@ def fit_far_row_flash(arch, B, S, H, KV, d, gen, worst) -> dict:
     return row
 
 
-def fit_far_row_ssd(gen, worst) -> dict:
-    """The SSD scan at mamba2's prefill_32k shape (x holds 3.2e9 elements):
-    the last row's y and h_last bit-equal to a one-row call on that row,
-    which is within 2e-4 of the plain version; the kernel timed."""
+def fit_far_row_ssd(label, b, S, H, P_, N, G, Q, gen, worst, dtype=torch.bfloat16) -> dict:
+    """The SSD scan at a prefill shape (x holds 3.2e9 elements at mamba2's
+    prefill_32k): the last row's y and h_last bit-equal to a one-row call
+    on that row, which is within the plain version's bar (2e-4 at bf16);
+    the kernel timed."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    b, S, H, P_, N, G, Q = FIT_SSD
-    args = ssd_inputs(b, S, H, P_, N, G, torch.bfloat16, gen)
+    args = ssd_inputs(b, S, H, P_, N, G, dtype, gen)
     y, h = ssd_ops.ssd_scan(*args, chunk=Q)
     last = [t[-1:] for t in args]
     y1, h1 = ssd_ops.ssd_scan(*last, chunk=Q)
@@ -3238,23 +3276,100 @@ def fit_far_row_ssd(gen, worst) -> dict:
     same = torch.equal(y[-1:], y1) and torch.equal(h[-1:], h1)
     del y, h
     yr, hr = ssd_scan_ref(*last, chunk=Q)
-    (ey, oky), (eh, okh) = max_err(y1, yr, TOL[("ssd", torch.bfloat16)]), \
-        max_err(h1, hr, TOL[("ssd", torch.bfloat16)])
+    (ey, oky), (eh, okh) = max_err(y1, yr, TOL[("ssd", dtype)]), \
+        max_err(h1, hr, TOL[("ssd", dtype)])
     worst["ssd_scan"] = max(worst["ssd_scan"], ey, eh)
     del y1, h1, yr, hr
     ms = cuda_ms(lambda: ssd_ops.ssd_scan(*args, chunk=Q), iters=3, warmup=1)
-    b_ms, b_by = bound(*ssd_ops.work(b, S, H, P_, N, G, Q, 2), torch.bfloat16)
-    row = {"kernel": "ssd_scan", "shape": f"mamba2-780m prefill_32k: b={b} S={S} H={H} "
+    b_ms, b_by = bound(*ssd_ops.work(b, S, H, P_, N, G, Q, args[0].element_size()),
+                       dtype)
+    row = {"kernel": "ssd_scan", "shape": f"{label}: b={b} S={S} H={H} "
            f"P={P_} N={N} G={G}", "x_elements": args[0].numel(), "last_row_bit_equal": same,
            "max_abs_err": max(ey, eh), "ms": ms, "library_ms": None, "bound_ms": b_ms,
            "bound_by": b_by, "share_of_bound": round(b_ms / ms, 4)}
     log(f"[fit] {json.dumps(row)}")
     del args
     release()
-    check(same, "ssd_scan at mamba2 prefill_32k: the last row differs from a one-row call")
-    check(oky and okh, "ssd_scan at mamba2 prefill_32k: the far row disagrees with its "
-                       "plain version")
+    check(same, f"ssd_scan at {label}: the last row differs from a one-row call")
+    check(oky and okh, f"ssd_scan at {label}: the far row disagrees with its plain version")
     return row
+
+
+def kernel_calls(fn):
+    """``fn()`` with the models' kernel entry points wrapped to record the
+    distinct shapes they are called at -> (fn's result, flash calls
+    (B, S, H, KV, d, window), SSD calls (b, S, H, P, N, G, chunk, dtype)),
+    each in the order of its first call."""
+    from unittest import mock
+
+    from repro_torch.models import lm, mamba
+
+    flash, ssd = {}, {}
+    flash_fn, ssd_fn = lm.flash_attention, mamba.ssd_scan
+
+    def flash_rec(q, k, v, *, causal=True, window=0, **kw):
+        check(causal and q.shape[1] == k.shape[1], "flash: a sharded prefill's call "
+              f"is causal over its own keys, got q {tuple(q.shape)} k {tuple(k.shape)}")
+        flash[(*q.shape[:3], k.shape[2], q.shape[3], window)] = None
+        return flash_fn(q, k, v, causal=causal, window=window, **kw)
+
+    def ssd_rec(x, B, C, dt, da, *, chunk):
+        ssd[(*x.shape, B.shape[3], B.shape[2], chunk, x.dtype)] = None   # N, G
+        return ssd_fn(x, B, C, dt, da, chunk=chunk)
+
+    with mock.patch.object(lm, "flash_attention", flash_rec), \
+            mock.patch.object(mamba, "ssd_scan", ssd_rec):
+        out = fn()
+    return out, list(flash), list(ssd)
+
+
+def fit_sharded(worst) -> tuple[list, list]:
+    """Rank 0 of ``SHARDED_CELLS`` on the card: each cell's dry run on its
+    pod mesh (meta, the fake process group at the mesh's world size)
+    predicts the card's peak, launches and collective bytes; then rank 0's
+    program runs once at full width on its real shards, its mesh a CUDA
+    one over the same fake group (collectives allocate their outputs and
+    move nothing).  Fails if a prediction misses by more than
+    ``FIT_PEAK_TOL`` or a launch count differs.  The collectives compute
+    nothing, so the cell's values say little: each kernel is then run at
+    every local shape the dry run called it at, and held to its plain
+    version as the far rows are.  Returns (the cells' rows, the kernels'
+    rows)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.build import build_cell
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    rows, kernels = [], []
+    for (arch, shape, mesh_name), want in SHARDED_CELLS.items():
+        mesh = dryrun.MESHES[mesh_name]()
+        with M.fake_world(mesh.size):
+            rec, flash, ssd = kernel_calls(
+                lambda: dryrun.run_cell(arch, shape, mesh, mesh_name, verbose=False))
+            check(rec["status"] == "ok", f"dry run of {arch} {shape} {mesh_name}: {rec}")
+            check(rec["fits_hbm"], f"{arch} {shape} {mesh_name} is predicted not to fit "
+                                   "a card")
+            log(f"[sharded] predicted {arch} {shape} {mesh_name} rank 0: peak "
+                f"{rec['memory']['peak_bytes'] / 2**30:.3f} GiB, collectives "
+                f"{json.dumps(rec['collectives'])}, trace {rec['trace_s']} s, "
+                f"flash at {flash}, ssd_scan at {[c[:-1] for c in ssd]}")
+            cell = build_cell(get_config(arch), SHAPES[shape], mesh, device_type="cuda")
+            row = fit_run(cell, rec, fit_args_sharded, want)
+            log(f"[sharded] {gpu_line()}: {row['cell']} peak predicted "
+                f"{row['predicted_gib']} GiB, measured {row['measured_gib']} GiB "
+                f"(ratio {row['ratio']}), wall {row['wall_ms']} ms")
+            rows.append(row)
+            del cell
+        release()
+        check(bool(flash) == bool(want.get("flash_attention"))
+              and bool(ssd) == bool(want.get("ssd_scan")),
+              f"{arch} {shape} {mesh_name}: kernel shapes flash {flash}, ssd {ssd}, "
+              f"want {want}")
+        label = f"{arch} {shape} {mesh_name} rank 0"
+        kernels += [fit_far_row_flash(label, *c[:5], gen, worst, window=c[5]) for c in flash]
+        kernels += [fit_far_row_ssd(label, *c[:7], gen, worst, dtype=c[7]) for c in ssd]
+    return rows, kernels
 
 
 def phase_fit(worst) -> dict:
@@ -3262,7 +3377,8 @@ def phase_fit(worst) -> dict:
     device) predicts each cell's peak; the cells predicted to fit run once
     for real at full width, and each prediction is held to the card's
     ``max_memory_allocated`` within ``FIT_PEAK_TOL``; two cells must be
-    predicted not to fit.  Then both kernels past 2^31 elements."""
+    predicted not to fit.  Then both kernels past 2^31 elements, and rank 0
+    of three cells on the reference's pod meshes (:func:`fit_sharded`)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as M
@@ -3301,21 +3417,30 @@ def phase_fit(worst) -> dict:
                         recs[arch, shape]) for arch, shape in FIT_CELLS]
         launches = {name: op.launches - n0[name] for name, op in ops.items()}
         gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
-        far = [fit_far_row_flash(*c, gen, worst) for c in FIT_FLASH]
-        far.append(fit_far_row_ssd(gen, worst))
+        far = [fit_far_row_flash(f"{arch} prefill_32k", *dims, gen, worst)
+               for arch, *dims in FIT_FLASH]
+        far.append(fit_far_row_ssd("mamba2-780m prefill_32k", *FIT_SSD, gen, worst))
         context.append(outside_allocator())
+        sharded, sharded_far = fit_sharded(worst)
+        context.append(outside_allocator())
+        # the cells' own launches: the far rows' comparisons do not count
+        sharded_launches = {name: sum(r["launches"][name] for r in sharded)
+                            for name in ops}
     finally:
         release()
         torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
     log(f"[fit] {gpu_line()}: held outside the allocator {context} B (before the "
-        f"cells, after the far rows), mesh.CONTEXT_BYTES {M.CONTEXT_BYTES:,} B")
+        f"cells, after the far rows, after the sharded cells), mesh.CONTEXT_BYTES "
+        f"{M.CONTEXT_BYTES:,} B")
     check(max(context) <= M.CONTEXT_BYTES,
           f"the card holds {max(context)} B outside the allocator, more than "
           f"mesh.CONTEXT_BYTES {M.CONTEXT_BYTES}")
     out = {"cells": rows, "far_rows": far, "launches": launches,
+           "sharded": sharded, "sharded_far_rows": sharded_far,
+           "sharded_launches": sharded_launches,
            "outside_allocator_bytes": context,
            "phase_s": round(time.perf_counter() - t0, 1)}
-    log(f"[fit] {json.dumps({'phase_s': out['phase_s'], 'launches': launches})}")
+    log(f"[fit] {json.dumps({'phase_s': out['phase_s'], 'launches': launches, 'sharded_launches': sharded_launches})}")
     return out
 
 
@@ -3393,6 +3518,7 @@ def main() -> int:
                 "zoo_launches": stats["zoo"]["launches"][name],
                 "train_launches": stats["train"]["launches"][name],
                 "fit_launches": stats["fit"]["launches"][name],
+                "sharded_launches": stats["fit"]["sharded_launches"][name],
                 **rows[name]}
                for name, replaces, phase in KERNELS]
     log(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -7,11 +7,12 @@ hand-written CUDA kernels (``kernels/``) and the plain tensor path the
 reference model takes without its Pallas kernels; training never takes
 the kernels, which have no backward.
 
-The reference's ``partitioning``, ``use_pallas`` (here ``use_kernels``),
-``pallas_interpret``, ``decode_unroll`` and ``donate`` have no training
-counterpart on one card: there is no mesh to partition over, no interpret
-mode, no scanned layer stack to unroll and no buffer donation in eager
-PyTorch (the optimizer updates the parameters in place instead).
+``partitioning`` names the rule table (``distributed/sharding.rules_for``)
+of a step on a mesh of several cards.  The reference's ``use_pallas``
+(here ``use_kernels``), ``pallas_interpret``, ``decode_unroll`` and
+``donate`` have no counterpart: there is no interpret mode, no scanned
+layer stack to unroll and no buffer donation in eager PyTorch (the
+optimizer updates the parameters in place instead).
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ class PerfConfig:
     remat: str = "full"
     microbatch: int = 1            # grad-accumulation steps over the global batch
     accum_dtype: str = "bfloat16"  # grad accumulator dtype (bfloat16 | float32)
+    # sharding rule table on a mesh of several cards: tp | zero3 | dp
+    partitioning: str = "tp"
 
 
 BASELINE = PerfConfig()

@@ -19,15 +19,20 @@ A partition spec here is a plain tuple, one entry per leading dim (a mesh
 axis name, a tuple of fused axis names, or None), trailing Nones dropped,
 as ``tuple(jax.sharding.PartitionSpec(...))`` reads.  A mesh is anything
 with ``shape`` (axis name -> size) and ``axis_names``
-(``launch/mesh.py``).  The port runs on one card, whose mesh
-``{"data": 1, "model": 1}`` resolves every spec to replication; the rules
-are kept, and held to the reference's, for a mesh of several cards.
+(``launch/mesh.py``).  On the one-card mesh ``{"data": 1, "model": 1}``
+every spec resolves to replication and the hook is the identity.  On the
+reference's pod meshes (``16x16``, ``2x16x16``) :func:`placements` turns a
+spec into one DTensor placement per mesh dim, and the hook
+(:meth:`Sharder.__call__`, the reference's ``with_sharding_constraint``)
+redistributes a DTensor to the placements of its spec.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import params as P
 
@@ -81,6 +86,39 @@ def _mesh_size(mesh) -> int:
     return math.prod(mesh.shape.values()) if mesh is not None else 1
 
 
+def spec_axes(spec: Spec, ndim: int) -> list[tuple[str, ...]]:
+    """A spec -> the mesh axes of each of ``ndim`` dims, in order (() where
+    the dim is replicated)."""
+    parts = list(spec) + [None] * (ndim - len(spec))
+    return [() if p is None else (p if isinstance(p, tuple) else (p,)) for p in parts]
+
+
+def placements(spec: Spec, mesh) -> list:
+    """A spec -> one DTensor placement per dim of ``mesh`` (anything with
+    ``mesh_dim_names`` or ``axis_names``): ``Shard(d)`` on every mesh dim
+    that dim ``d`` is split over, ``Replicate()`` on the rest.  A dim over
+    fused axes (``("pod", "data")``) is split over them in the spec's
+    order, major first, as DTensor splits a dim sharded on several mesh
+    dims (in mesh-dim order)."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or mesh.axis_names)
+    out: list = [Replicate()] * len(names)
+    for d, axes in enumerate(spec_axes(spec, len(spec))):
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: fused axes {axes} out of the mesh's "
+                             f"order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def local_shape(shape, spec: Spec, mesh_shape: dict) -> tuple[int, ...]:
+    """The shape of one device's shard of a ``shape`` tensor under ``spec``
+    (the rules shard only dims that divide evenly)."""
+    return tuple(n // math.prod(mesh_shape[a] for a in axes)
+                 for n, axes in zip(shape, spec_axes(spec, len(shape))))
+
+
 @dataclasses.dataclass
 class Sharder:
     """Resolves logical axis names to partition specs on a fixed mesh.
@@ -115,14 +153,19 @@ class Sharder:
 
     # ------------------------------------------------------------ act hook
     def __call__(self, x, names):
-        """The reference's sharding constraint on an activation: the
-        identity where nothing is sharded.  A mesh of several devices has
-        no placement in the port (one process, one card)."""
-        if _mesh_size(self.mesh) > 1:
-            raise NotImplementedError(
-                f"mesh {dict(self.mesh.shape)}: placing activations on several "
-                "devices is not ported")
-        return x
+        """The reference's sharding constraint on an activation.  The
+        identity where nothing is sharded (no mesh, or one device).  On a
+        mesh of several devices ``x`` is a DTensor, redistributed to the
+        placements of ``spec_for(x.shape, names)``: a ``Partial`` left by a
+        row-parallel product is all-reduced here, a replicated dim that the
+        rules shard is cut to this device's part."""
+        if _mesh_size(self.mesh) <= 1:
+            return x
+        if not isinstance(x, DTensor):
+            raise TypeError(f"mesh {dict(self.mesh.shape)}: the hook places a "
+                            f"DTensor, got {type(x).__name__}")
+        spec = self.spec_for(tuple(x.shape), names)
+        return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
     # ------------------------------------------------------------ trees
     def spec_shardings(self, specs):
@@ -156,6 +199,19 @@ class Sharder:
         if self.mesh is None:
             return None
         return P.tree_map(self.zero1_spec, param_specs)
+
+    def batch_shardings(self, batch: dict):
+        """Input name -> spec for a batch of tensors whose batch dim leads
+        and whose second dim is the sequence (tokens, labels, a vlm's
+        patches, an encoder's frames), as the reference's."""
+        if self.mesh is None:
+            return None
+
+        def one(t):
+            names = ("batch", "act_seq") + (None,) * (len(t.shape) - 2)
+            return self.spec_for(tuple(t.shape), names[:len(t.shape)])
+
+        return {k: one(v) for k, v in batch.items()}
 
 
 def opt_sharding_tree(sharder: Sharder, param_specs):

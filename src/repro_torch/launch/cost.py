@@ -26,13 +26,24 @@ eager call, on ``meta`` tensors (the dry run) or on real ones:
 A kernel wrapper given meta tensors launches nothing: it reports its
 kernel's analytic work (``kernels.meta.report``) to
 :meth:`OpCounter.add_work`.
+
+A sharded step (``distributed/spmd.py``) runs on one device's shards, so
+every count is that device's; its collectives are ``_c10d_functional``
+ops, which move no HBM bytes here (as ``hlo.py`` leaves them out of its
+bytes) and are summed in :attr:`OpCounter.collectives` by kind, as the
+reference's ``collectives_per_device``: the output bytes of each
+(``<kind>_payload``) and the bytes a device puts on the wire in a ring of
+``g`` devices (all-reduce ``2 (g-1)/g`` of its output, all-gather and
+all-to-all ``(g-1)/g``, reduce-scatter ``g-1``), ``count`` and ``total``.
 """
 from __future__ import annotations
 
 import functools
 import weakref
+from collections import defaultdict
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
@@ -48,6 +59,26 @@ _SCATTER = {aten.index_put_, aten._index_put_impl_, aten.index_copy_, aten.scatt
             aten.scatter_add_, aten.scatter_reduce_, aten.index_add_,
             aten.masked_scatter_}
 _OVERWRITE = {aten.copy_, aten.fill_, aten.zero_}
+
+
+C10D = torch.ops._c10d_functional
+# functional collective -> its kind, by the reference's names
+_COLLECTIVES = {C10D.all_reduce: "all-reduce", C10D.all_reduce_: "all-reduce",
+                C10D.all_gather_into_tensor: "all-gather",
+                C10D.reduce_scatter_tensor: "reduce-scatter",
+                C10D.all_to_all_single: "all-to-all"}
+_WIRE = {"all-reduce": lambda b, g: 2.0 * b * (g - 1) / g,
+         "all-gather": lambda b, g: b * (g - 1) / g,
+         "reduce-scatter": lambda b, g: b * (g - 1),
+         "all-to-all": lambda b, g: b * (g - 1) / g}
+
+
+def _group_size(args) -> int:
+    """The size of a functional collective's group, from its name (the
+    last string argument)."""
+    name = [a for a in args if isinstance(a, str)][-1]
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return dist.get_world_size(_resolve_process_group(name))
 
 
 def _input_bytes(args) -> int:
@@ -92,6 +123,7 @@ class OpCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.kernels: dict[str, int] = {}
+        self.collectives: dict[str, float] = defaultdict(float)
         self._sizes: dict[int, int] = {}
         self._refs: dict[int, weakref.ref] = {}
 
@@ -144,10 +176,23 @@ class OpCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         packet = func._overloadpacket
+        if packet is C10D.wait_tensor:
+            # the collective's output itself, as on a device (the meta
+            # kernel hands back a new tensor)
+            return args[0]
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
-        self.bytes += self._op_bytes(func, packet, args, ins, outs)
+        kind = _COLLECTIVES.get(packet)
+        if kind is not None:
+            b = sum(t.numel() * t.element_size() for t in outs)
+            c = self.collectives
+            c[kind] += _WIRE[kind](b, _group_size(args))
+            c[kind + "_payload"] += b
+            c["count"] += 1
+            c["total"] = sum(v for k, v in c.items() if k in _WIRE)
+        else:
+            self.bytes += self._op_bytes(func, packet, args, ins, outs)
         for t in outs:
             self._register(t)
         scratch = _SCRATCH.get(packet)

@@ -5,13 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --stream
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --dryrun
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --dryrun --mesh single
 
 ``--stream`` serves through the OpenAI-style completions front-end
 (serving/api.py) and prints SSE frames as tokens are emitted — per-token
 streaming over the cluster, migrations included.  ``--dryrun`` traces the
 full-width decode step at the production shape (decode_32k) on the meta
 device against one H100's memory (``launch/dryrun.py``) and exits; it needs
-no GPU.
+no GPU.  ``--mesh single|multi|both`` traces it per card on the reference's
+16x16 / 2x16x16 meshes of H100s instead.
 """
 from __future__ import annotations
 
@@ -130,6 +132,10 @@ def main(argv=None):
     ap.add_argument("--dryrun", action="store_true",
                     help="trace the production decode step on the meta device "
                          "against the card's memory and exit")
+    ap.add_argument("--mesh", default="h100",
+                    choices=["h100", "single", "multi", "both"],
+                    help="the dry run's mesh: one card, or the reference's "
+                         "16x16 / 2x16x16 meshes of H100s (per card)")
     ap.add_argument("--trace-out", default=None,
                     help="write the request-lifecycle trace as Chrome/"
                          "Perfetto trace-event JSON to this path")
@@ -143,7 +149,7 @@ def main(argv=None):
     if args.dryrun:
         from repro_torch.launch import dryrun as DR
         return DR.main(["--arch", args.arch, "--shape", "decode_32k",
-                        "--mesh", "h100"] +
+                        "--mesh", args.mesh] +
                        (["--perf"] + args.perf if args.perf else []))
 
     from repro_torch.configs import get_config

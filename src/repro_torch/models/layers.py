@@ -13,6 +13,14 @@ KV caches are dicts of tensors that the cache writers update in place;
 every write that the reference drops (``mode="drop"`` or a select against
 the old cache) is masked here, so the entries it leaves alone stay
 bit-identical.
+
+``shd(x, names)`` is the reference's sharding hook, called at its sites
+with its logical names: the identity on one card (:func:`noop_shd`), a
+``distributed.spmd.Spmd`` in a sharded step, whose code runs on each
+device's shards (:func:`mesh_of`; the attention regions ``head_axes``,
+``reduce``, ``kv_for_queries``, ``cache_to_mesh`` and ``attend_decode``
+take the ``Spmd`` or None, and on one card are the identity or the
+one-card code).
 """
 from __future__ import annotations
 
@@ -30,6 +38,18 @@ from repro_torch.models.params import ParamSpec
 f32 = torch.float32
 NEG = -1e30
 UNEMBED_ROWS = 32768      # vocabulary entries per f32 slice of the table
+KV_NAMES = ("batch", "act_kv", "kv_heads", "qkv")
+RESIDUAL = ("batch", "act_seq", "embed")
+
+
+def noop_shd(x, names):
+    """The sharding hook on one card: the identity."""
+    return x
+
+
+def mesh_of(shd):
+    """The ``Spmd`` of a sharded step, None on one card."""
+    return shd if getattr(shd, "is_mesh", False) else None
 
 
 # ---------------------------------------------------------------------------
@@ -203,10 +223,14 @@ def attention_full(q, k, v, *, causal: bool, window: int = 0,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def attention_decode(q, k_cache, v_cache, kv_mask, scale: float | None = None):
+def attention_decode(q, k_cache, v_cache, kv_mask, scale: float | None = None, *,
+                     sp=None, seq_axes=()):
     """Single-step decode attention.
 
-    q: (B,1,H,d); caches: (B,S,KV,d); kv_mask: (B,S) bool valid slots."""
+    q: (B,1,H,d); caches: (B,S,KV,d); kv_mask: (B,S) bool valid slots.  In
+    a sharded step (``sp``) over a cache whose slots are split over
+    ``seq_axes``, the row maxima, the sums of the exponentials and the
+    weighted values (partial sums over the slots) are all-reduced."""
     B, _, H, d = q.shape
     KV = k_cache.shape[2]
     rep = H // KV
@@ -215,10 +239,19 @@ def attention_decode(q, k_cache, v_cache, kv_mask, scale: float | None = None):
     scores = torch.einsum("bgrd,bsgd->bgrs", qg.to(f32), k_cache.to(f32)) * scale
     scores = torch.where(kv_mask[:, None, None, :], scores,
                          torch.full_like(scores, NEG))
-    m = scores.amax(dim=-1, keepdim=True).clamp(min=-1e29)
+    m = scores.amax(dim=-1, keepdim=True)
+    if sp is not None:
+        m = sp.all_reduce(m, "max", seq_axes)
+    m = m.clamp(min=-1e29)
     e = torch.exp(scores - m)
-    w = (e / e.sum(-1, keepdim=True).clamp(min=1e-30)).to(v_cache.dtype)
+    s = e.sum(-1, keepdim=True)
+    if sp is not None:
+        s = sp.all_reduce(s, "sum", seq_axes)
+    w = (e / s.clamp(min=1e-30)).to(v_cache.dtype)
+    del s     # not alive in the product below: the dry run counts its bytes
     out = torch.einsum("bgrs,bsgd->bgrd", w, v_cache)
+    if sp is not None:
+        out = sp.all_reduce(out, "sum", seq_axes)
     return out.reshape(B, 1, H, d)
 
 
@@ -233,8 +266,9 @@ def attn_out(p, ctx):
 # ---------------------------------------------------------------------------
 
 def kv_cache_specs(cfg: ModelConfig, batch: int, length: int, *,
-                   ring: bool = False) -> dict:
-    KV, hd = cfg.num_kv_heads, cfg.head_dim
+                   ring: bool = False, heads: int = 0) -> dict:
+    """``heads``: the KV heads a device holds, where not all of them."""
+    KV, hd = heads or cfg.num_kv_heads, cfg.head_dim
     axes = ("batch", "act_kv", "kv_heads", "qkv")
     d = {"k": ParamSpec((batch, length, KV, hd), axes, init="zeros"),
          "v": ParamSpec((batch, length, KV, hd), axes, init="zeros")}
@@ -351,14 +385,23 @@ def attention_chunk(q, k, v, cache, pos0, *, window: int = 0, ring: bool = False
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def cache_write_decode(cache, k, v, pos, live=None, *, ring: bool = False):
+def cache_write_decode(cache, k, v, pos, live=None, *, ring: bool = False,
+                       length: int = 0, offset: int = 0):
     """Write one token at per-row position ``pos`` (B,), in slot pos % L
     (ring caches record the position too).  Rows with ``live`` False keep
     their old slot values (each row writes only its own row, so the select
-    needs no device sync)."""
+    needs no device sync).  A device's part of a cache split along its
+    slots holds slots ``offset ..`` of ``length`` in all: a row writes
+    only where its slot is one of them."""
     B, L = cache["k"].shape[:2]
     rows = torch.arange(B, device=k.device)
-    slot = pos.long() % L
+    if length:
+        slot = pos.long() % length - offset
+        mine = (slot >= 0) & (slot < L)
+        live = mine if live is None else live & mine
+        slot = slot.clamp(0, L - 1)
+    else:
+        slot = pos.long() % L
     new = {"k": k[:, 0], "v": v[:, 0]}
     if ring:
         new["pos"] = pos
@@ -372,8 +415,10 @@ def cache_write_decode(cache, k, v, pos, live=None, *, ring: bool = False):
     return cache
 
 
-def cache_valid_mask(cache, pos, *, ring: bool = False, window: int = 0):
-    """(B, L) bool — slots visible to the token at per-row position pos."""
+def cache_valid_mask(cache, pos, *, ring: bool = False, window: int = 0,
+                     offset: int = 0):
+    """(B, L) bool — slots visible to the token at per-row position pos;
+    ``offset``: the first slot of a device's part of a split cache."""
     p = pos.long()[:, None]
     if ring:
         sp = cache["pos"]
@@ -382,7 +427,101 @@ def cache_valid_mask(cache, pos, *, ring: bool = False, window: int = 0):
             m &= sp > p - window
         return m
     L = cache["k"].shape[1]
-    return torch.arange(L, device=pos.device)[None, :] <= p
+    slots = torch.arange(L, device=pos.device)
+    if offset:
+        slots = slots + offset
+    return slots[None, :] <= p
+
+
+# ---------------------------------------------------------------------------
+# attention regions of a sharded step (``sp`` an ``Spmd``; None on one card,
+# where each is the identity or the one-card code)
+# ---------------------------------------------------------------------------
+
+def head_axes(sp, cfg: ModelConfig) -> tuple:
+    """(query-head axes, KV-head axes) the projections run
+    tensor-parallel over."""
+    if sp is None:
+        return (), ()
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return (sp.tp((D, H, hd), ("embed", "heads", "qkv"), 1),
+            sp.tp((D, KV, hd), ("embed", "kv_heads", "qkv"), 1))
+
+
+def reduce(sp, y, axes):
+    """A row-parallel product's partial sums over ``axes``, summed across
+    the devices (``Spmd.reduce``)."""
+    return y if sp is None else sp.reduce(y, axes)
+
+
+def kv_for_queries(sp, cfg: ModelConfig, k, v, h_axes, k_axes):
+    """k, v cut to the KV heads this device's query heads read."""
+    if sp is None:
+        return k, v
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    return (sp.kv_heads_for(k, H, KV, h_axes, k_axes),
+            sp.kv_heads_for(v, H, KV, h_axes, k_axes))
+
+
+def cache_to_mesh(sp, cfg: ModelConfig, cache, length: int, k_axes):
+    """A fresh cache of ``length`` global slots, written whole on this
+    device with the KV heads of ``k_axes``, cut to the rules' layout
+    (``KV_NAMES``) where this device holds a dim whole: the slots (and a
+    ring's positions) and, if the projection left them whole, the KV
+    heads.  A dim the projection already split keeps its split (moving it
+    onto the slots would take an all-to-all)."""
+    if sp is None:
+        return cache
+    tgt = sp.axes((sp.batch, length, cfg.num_kv_heads, cfg.head_dim), KV_NAMES)
+    seq = tgt[1] if not set(tgt[1]) & set(k_axes) else ()
+    heads = tgt[2] if not k_axes and not set(tgt[2]) & set(seq) else ()
+    out = {}
+    for name, t in cache.items():
+        t = sp.narrow(t, 1, seq)
+        if name != "pos":
+            t = sp.narrow(t, 2, heads)
+        out[name] = t
+    return out
+
+
+def attend_decode(sp, cfg: ModelConfig, q, k, v, cache, pos, *, length: int,
+                  h_axes, k_axes, ring: bool = False, window: int = 0,
+                  live=None, write: bool = True):
+    """One decode token's attention against its cache (in place): the
+    token's k/v written at ``pos``, then the visible slots attended.
+    ``write`` False: a cache read only (whisper's cross-KV, every slot
+    valid; sharded steps only).
+
+    In a sharded step the cache is this device's part of ``length`` global
+    slots, laid out by the rules.  The token's k/v are moved to the
+    cache's KV-head layout and written where its slot is this device's;
+    queries whose heads are split over an axis that also splits the slots
+    are gathered over it, attend every head over the local slots, the
+    softmax merges across the slots' axes, and each device keeps its own
+    heads."""
+    if sp is None:
+        cache_write_decode(cache, k, v, pos, live=live, ring=ring)
+        mask = cache_valid_mask(cache, pos, ring=ring, window=window)
+        return attention_decode(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
+    tgt = sp.axes((sp.batch, length, cfg.num_kv_heads, cfg.head_dim), KV_NAMES)
+    s_axes, c_axes = tgt[1], tgt[2]
+    off, _ = sp.part(length, s_axes)
+    if write:
+        cache_write_decode(cache, sp.relayout(k, 2, k_axes, c_axes),
+                           sp.relayout(v, 2, k_axes, c_axes),
+                           pos, live=live, ring=ring, length=length, offset=off)
+        mask = cache_valid_mask(cache, pos, ring=ring, window=window, offset=off)
+    else:
+        mask = torch.ones(cache["k"].shape[:2], dtype=torch.bool, device=q.device)
+    G = tuple(a for a in s_axes if a in h_axes)
+    if G:
+        q = sp.all_gather(q, 2, G)
+    rest = tuple(a for a in h_axes if a not in G)
+    kk = sp.kv_heads_for(cache["k"], cfg.num_heads, cfg.num_kv_heads, rest, c_axes)
+    vv = sp.kv_heads_for(cache["v"], cfg.num_heads, cfg.num_kv_heads, rest, c_axes)
+    ctx = attention_decode(q, kk.to(q.dtype), vv.to(q.dtype), mask, sp=sp,
+                           seq_axes=s_axes)
+    return sp.narrow(ctx, 2, G) if G else ctx
 
 
 # ---------------------------------------------------------------------------
@@ -409,14 +548,23 @@ def _act(name: str, x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p, x, cfg: ModelConfig):
+def mlp_apply(p, x, cfg: ModelConfig, shd=noop_shd):
     """SwiGLU or GeGLU MLP; ``gelu_plain``: x @ w_in + b_in, tanh GELU, then
-    @ w_out + b_out (whisper)."""
+    @ w_out + b_out (whisper).  In a sharded step the hidden width runs
+    tensor-parallel: the down product's partial sums are reduced (and
+    ``b_out`` added once, after)."""
+    sp = mesh_of(shd)
+    names = ("batch", "act_seq", "mlp")
     if cfg.mlp_activation == "gelu_plain":
-        h = _act("gelu", x @ p["w_in"] + p["b_in"].to(x.dtype))
-        return h @ p["w_out"] + p["b_out"].to(x.dtype)
-    h = _act(cfg.mlp_activation, x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+        h = shd(_act("gelu", x @ p["w_in"] + p["b_in"].to(x.dtype)), names)
+        if sp is None:
+            return h @ p["w_out"] + p["b_out"].to(x.dtype)
+        y = sp.reduce(h @ p["w_out"], sp.tp((cfg.d_model, cfg.d_ff), ("embed", "mlp"), 1))
+        return y + p["b_out"].to(x.dtype)
+    h = shd(_act(cfg.mlp_activation, x @ p["w_gate"]) * (x @ p["w_up"]), names)
+    if sp is None:
+        return h @ p["w_down"]
+    return sp.reduce(h @ p["w_down"], sp.tp((cfg.d_model, cfg.d_ff), ("embed", "mlp"), 1))
 
 
 # ---------------------------------------------------------------------------
@@ -471,13 +619,27 @@ def moe_route(p, x, cfg: ModelConfig):
     return w / w.sum(-1, keepdim=True).clamp(min=1e-9), idx, probs
 
 
-def moe_apply(p, x, cfg: ModelConfig):
+def moe_apply(p, x, cfg: ModelConfig, shd=noop_shd):
     """x (B,S,D) -> (y, aux loss).  Per-row (sequence) capacity dispatch: each
     row gives every expert C slots, assignments past them are dropped, every
     expert computes all its slots (empty ones on a zero row), and each token
-    gathers its K slots back, weighted by its renormalised top-K."""
+    gathers its K slots back, weighted by its renormalised top-K.
+
+    In a sharded step the routing and the dispatch plan are each row's own
+    (capacity counts per row, so a device's rows plan as they would in the
+    whole batch); a device computes the slots of its experts (``experts``)
+    on its part of their hidden width (``moe_mlp``), each token gathers
+    the slots it finds there (the others read the zero row), and the
+    partial sums are reduced.  ``aux`` then covers the device's rows."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    sp = mesh_of(shd)
+    e0, El, red = 0, E, ()
+    if sp is not None:
+        shape, names = (E, D, cfg.moe_d_ff), ("experts", "embed", "moe_mlp")
+        e_axes = sp.tp(shape, names, 0)
+        e0, El = sp.part(E, e_axes)
+        red = e_axes + sp.tp(shape, names, 2)
     w, idx, probs = moe_route(p, x, cfg)                        # (B,S,K)
 
     # switch-style aux load-balancing loss
@@ -495,16 +657,28 @@ def moe_apply(p, x, cfg: ModelConfig):
     buf_tok.scatter_(1, slot, tok)
     buf_tok = buf_tok[:, : E * C]
 
+    if sp is not None:    # this device's experts' slots
+        buf_tok = buf_tok[:, e0 * C:(e0 + El) * C]
+
     xp = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)            # sentinel row
-    xs = torch.gather(xp, 1, buf_tok[:, :, None].expand(B, E * C, D))
-    xs = xs.view(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    xs = torch.gather(xp, 1, buf_tok[:, :, None].expand(B, El * C, D))
+    xs = shd(xs.view(B, El, C, D), ("batch", "experts", None, None))
+    xs = xs.transpose(0, 1).reshape(El, B * C, D)
     h = _act(cfg.mlp_activation, torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
-    yexp = torch.bmm(h, p["w_down"]).view(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    # the port's expert-major layout: (experts, batch x capacity, moe_mlp)
+    h = shd(h, ("experts", None, "moe_mlp"))
+    yexp = torch.bmm(h, p["w_down"]).view(El, B, C, D).transpose(0, 1).reshape(B, El * C, D)
 
     # combine by gather: each token pulls its K slots back
+    if sp is not None:    # slots of other devices' experts read the zero row
+        local = slot - e0 * C
+        slot = torch.where((local >= 0) & (local < El * C), local,
+                           torch.full_like(local, El * C))
     yp = torch.cat([yexp, yexp.new_zeros(B, 1, D)], dim=1)
     gat = torch.gather(yp, 1, slot[:, :, None].expand(B, T, D))  # (B,T,D)
     y = (gat.view(B, S, K, D) * w[..., None].to(gat.dtype)).sum(dim=2)
+    if sp is not None:
+        y = sp.reduce(y, red)
     return y.to(x.dtype), aux
 
 
@@ -520,33 +694,60 @@ def embed_specs(cfg: ModelConfig) -> dict:
     return d
 
 
-def embed_apply(p, tokens, cfg: ModelConfig):
-    x = p["embedding"][tokens]
+def embed_apply(p, tokens, cfg: ModelConfig, shd=noop_shd):
+    """Token embeddings.  In a sharded step over a vocabulary split on
+    ``model``, each device looks up the tokens its rows of the table hold
+    (zero elsewhere) and the parts are reduced: exactly one is non-zero."""
+    sp = mesh_of(shd)
+    axes = ()
+    if sp is not None:
+        p = sp.weights(p, embed_specs(cfg))
+        axes = sp.tp((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), 0)
+    if axes:
+        v0, n = sp.part(cfg.vocab_size, axes)
+        local = tokens.long() - v0
+        mine = (local >= 0) & (local < n)
+        x = p["embedding"][local.clamp(0, n - 1)]
+        x = sp.reduce(torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype)),
+                      axes)
+    else:
+        x = p["embedding"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
-def unembed_logits(p, x, cfg: ModelConfig, *, rows: int = UNEMBED_ROWS):
+def unembed_logits(p, x, cfg: ModelConfig, *, rows: int = UNEMBED_ROWS,
+                   shd=noop_shd):
     """f32 logits: the products are taken in f32 (the reference accumulates
     bf16 inputs into an f32 result).  The table is cast to f32 ``rows``
     vocabulary entries at a time, so the f32 copy never holds the whole
-    table; every logit is the same product."""
+    table; every logit is the same product.  In a sharded step each device
+    takes the logits of its part of the vocabulary and they are gathered
+    whole."""
     xf = x.to(f32)
+    sp = mesh_of(shd)
+    if sp is not None:
+        p = sp.weights(p, embed_specs(cfg))
     if cfg.tie_embeddings:
         w = p["embedding"]
-        return torch.cat([xf @ w[v0:v0 + rows].to(f32).t()
-                          for v0 in range(0, w.shape[0], rows)], dim=-1)
-    w = p["unembed"]
-    return torch.cat([xf @ w[:, v0:v0 + rows].to(f32)
-                      for v0 in range(0, w.shape[1], rows)], dim=-1)
+        logits = torch.cat([xf @ w[v0:v0 + rows].to(f32).t()
+                            for v0 in range(0, w.shape[0], rows)], dim=-1)
+    else:
+        w = p["unembed"]
+        logits = torch.cat([xf @ w[:, v0:v0 + rows].to(f32)
+                            for v0 in range(0, w.shape[1], rows)], dim=-1)
+    if sp is None:
+        return logits
+    return sp.all_gather(logits, logits.dim() - 1,
+                         sp.tp((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), 0))
 
 
 # ---------------------------------------------------------------------------
 # training: loss and rematerialisation
 # ---------------------------------------------------------------------------
 
-def chunked_xent(p, x, labels, cfg: ModelConfig, *, chunk: int = 512):
+def chunked_xent(p, x, labels, cfg: ModelConfig, shd=noop_shd, *, chunk: int = 512):
     """Cross-entropy without materialising (B,S,V) logits: a loop over
     sequence chunks, each recomputed in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so one
@@ -562,7 +763,8 @@ def chunked_xent(p, x, labels, cfg: ModelConfig, *, chunk: int = 512):
         labels = F.pad(labels, (0, pad), value=-1)
 
     def body(xc, lc):
-        logits = unembed_logits(p, xc, cfg)                       # (B,c,V) f32
+        logits = shd(unembed_logits(p, xc, cfg),                  # (B,c,V) f32
+                     ("xent_batch", None, "vocab"))
         lse = torch.logsumexp(logits, dim=-1)
         lbl = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
         valid = lc >= 0

@@ -22,6 +22,11 @@ Modes:
   decode        one token per row at per-row positions
   paged_decode  decode against paged KV pools through a block table
   paged_chunk   chunked prefill appending into paged pools
+
+``shd`` is the reference's sharding hook (``layers.noop_shd`` on one card).
+A sharded step (``distributed.spmd.Spmd``) runs modes ``prefill`` and
+``decode`` on each device's shards; the engine's chunk and paged modes
+run on one card.
 """
 from __future__ import annotations
 
@@ -102,8 +107,20 @@ class LM:
         cfg = self.cfg
         return cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
 
+    def _prefill_cache(self, kind, k, v, max_len, true_len):
+        """A fresh cache of ``max_len`` (a ring's length) holding a full
+        prefill's k/v, in ``perf.kv_dtype``, with k's KV heads."""
+        ring = self.cfg.window_for(kind) > 0
+        specs = L.kv_cache_specs(self.cfg, k.shape[0], self._cache_len(kind, max_len),
+                                 ring=ring, heads=k.shape[2])
+        dt = torch_dtype(self.perf.kv_dtype)
+        empty = {name: t.to(dt) if t.is_floating_point() else t
+                 for name, t in P.init(None, specs, k.device).items()}
+        return L.cache_write_prefill(empty, k, v, ring=ring, true_len=true_len)
+
     def _attend(self, p, h, kind, *, mode, positions, cache, pos, max_len,
-                true_len, block_table, live, slots, angles, prefix_len):
+                true_len, block_table, live, slots, angles, prefix_len,
+                shd=L.noop_shd):
         # imported here: repro_torch.serving imports the engine, which
         # imports this module
         from repro_torch.serving.kv_cache import (paged_gather, paged_write,
@@ -113,12 +130,19 @@ class LM:
         ring = window > 0
         q, k, v = L._project_qkv(p, h, cfg, positions, self._theta(kind),
                                  angles=angles)
+        q = shd(q, ("batch", "act_seq", "heads", "qkv"))
+        # a sharded step: this device's query and KV heads, as the
+        # projections left them; the caches in the rules' layout
+        sp = L.mesh_of(shd)
+        if sp is not None and mode not in ("prefill", "decode"):
+            raise NotImplementedError(f"mode {mode!r} on a mesh")
+        h_axes, k_axes = L.head_axes(sp, cfg)
         new_cache = None
         if mode == "decode":
-            L.cache_write_decode(cache, k, v, pos, live=live, ring=ring)
-            mask = L.cache_valid_mask(cache, pos, ring=ring, window=window)
-            ctx = L.attention_decode(q, cache["k"].to(q.dtype),
-                                     cache["v"].to(q.dtype), mask)
+            ctx = L.attend_decode(sp, cfg, q, k, v, cache, pos,
+                                  length=self._cache_len(kind, sp.kv_len) if sp else 0,
+                                  h_axes=h_axes, k_axes=k_axes, ring=ring,
+                                  window=window, live=live)
             new_cache = cache
         elif mode == "paged_decode":
             paged_write(cache["k"], cache["v"], block_table, pos, k[:, 0], v[:, 0],
@@ -164,32 +188,31 @@ class LM:
         else:  # prefill
             # flash has no prefix-LM mask: a vision prefix takes the plain
             # path, as in the reference
+            kq, vq = L.kv_for_queries(sp, cfg, k, v, h_axes, k_axes)
             if perf.use_kernels and prefix_len == 0:
-                ctx = flash_attention(q, k, v, causal=True, window=window)
+                ctx = flash_attention(q, kq, vq, causal=True, window=window)
             else:
-                ctx = L.attention_full(q, k, v, causal=True, window=window,
+                ctx = L.attention_full(q, kq, vq, causal=True, window=window,
                                        prefix_len=prefix_len,
                                        q_chunk=perf.q_chunk)
-            specs = L.kv_cache_specs(cfg, h.shape[0], self._cache_len(kind, max_len),
-                                     ring=ring)
-            dt = torch_dtype(perf.kv_dtype)
-            empty = {name: t.to(dt) if t.is_floating_point() else t
-                     for name, t in P.init(None, specs, h.device).items()}
-            new_cache = L.cache_write_prefill(empty, k, v, ring=ring,
-                                              true_len=true_len)
-        return L.attn_out(p, ctx), new_cache
+            new_cache = L.cache_to_mesh(sp, cfg,
+                                        self._prefill_cache(kind, k, v, max_len, true_len),
+                                        self._cache_len(kind, max_len), k_axes)
+        return L.reduce(sp, L.attn_out(p, ctx), h_axes), new_cache
 
-    def _ssm(self, p, h, *, mode, cache, true_len, live):
+    def _ssm(self, p, h, *, mode, cache, true_len, live, shd=L.noop_shd):
         cfg = self.cfg
+        if L.mesh_of(shd) is not None and mode not in ("prefill", "decode"):
+            raise NotImplementedError(f"mode {mode!r} on a mesh")
         if mode == "decode":
-            return M.ssd_apply_decode(p, h, cache, cfg, live=live), cache
+            return M.ssd_apply_decode(p, h, cache, cfg, shd, live=live), cache
         if mode == "chunk":
-            return M.ssd_apply_chunk(p, h, cache, cfg, true_len=true_len), cache
+            return M.ssd_apply_chunk(p, h, cache, cfg, shd, true_len=true_len), cache
         if mode == "train":
-            return M.ssd_apply_full(p, h, cfg, want_state=False, use_kernels=False)
+            return M.ssd_apply_full(p, h, cfg, shd, want_state=False, use_kernels=False)
         if mode != "prefill":
             raise ValueError(f"{cfg.name}: SSM layers have no {mode} mode")
-        return M.ssd_apply_full(p, h, cfg, want_state=True, true_len=true_len,
+        return M.ssd_apply_full(p, h, cfg, shd, want_state=True, true_len=true_len,
                                 use_kernels=self.perf.use_kernels)
 
     def _write_slots(self, mode, C, kinds, caches, pos, true_len, block_table, live):
@@ -221,29 +244,37 @@ class LM:
             out.append(by_len[key])
         return out
 
-    def _layer(self, i, p, x, *, mode, cache, slots, angles, **kw):
+    def _layer(self, i, p, x, *, mode, cache, slots, angles, shd=L.noop_shd, **kw):
         """Layer ``i``: mixer and MLP, each behind its norm and residual.
-        Returns (x, the layer's new cache, its MoE aux loss or None)."""
+        Returns (x, the layer's new cache, its MoE aux loss or None).  In a
+        sharded step the layer's weights split over a batch axis are
+        gathered first (``zero3``)."""
         cfg, kind = self.cfg, self.kinds[i]
+        sp = L.mesh_of(shd)
+        if sp is not None:
+            p = sp.weights(p, block_specs(cfg, kind, self.moes[i]))
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         if kind == "ssm":
-            mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache,
+            mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache, shd=shd,
                                 true_len=kw["true_len"], live=kw["live"])
         else:
             mix, nc = self._attend(p["mixer"], h, kind, mode=mode, cache=cache,
-                                   slots=slots, angles=angles[self._theta(kind)], **kw)
+                                   slots=slots, angles=angles[self._theta(kind)],
+                                   shd=shd, **kw)
         x = x + mix
         aux = None
         if self.moes[i]:
-            y, aux = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            y, aux = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
+                                 shd)
             x = x + y
         elif cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
+                                shd)
         return x, nc, aux
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
                max_len=0, true_len=None, block_table=None, live=None,
-               prefix_len=0, lo=0):
+               prefix_len=0, lo=0, shd=L.noop_shd):
         """Run the layers of ``params["layers"]`` (and of ``caches``), which
         are the model's layers ``lo, lo + 1, ...``: every layer by default,
         a stage's range in ``core.microservice``.  Returns (x, new caches,
@@ -271,7 +302,7 @@ class LM:
                 a = torch.zeros((), dtype=torch.float32, device=x.device)
                 for i in range(lo, hi):
                     x, _, ai = self._layer(i, layers[i], x, mode=mode, cache=None,
-                                           slots=None, angles=angles, **kw)
+                                           slots=None, angles=angles, shd=shd, **kw)
                     if ai is not None:
                         a = a + ai
                 return x, a
@@ -285,26 +316,27 @@ class LM:
         for j, p in enumerate(layers):
             x, nc, a = self._layer(lo + j, p, x, mode=mode,
                                    cache=None if caches is None else caches[j],
-                                   slots=slots[j] if slots else None, angles=angles, **kw)
+                                   slots=slots[j] if slots else None, angles=angles,
+                                   shd=shd, **kw)
             new_caches.append(nc)
             if a is not None:
                 aux = aux + a
         return x, new_caches, aux
 
-    def _last_logits(self, params, x, idx):
+    def _last_logits(self, params, x, idx, shd=L.noop_shd):
         """Final norm + f32 logits at per-row sequence index ``idx`` (B,)."""
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         rows = torch.arange(x.shape[0], device=x.device)
         x_last = x[rows, idx.long()][:, None]
-        return L.unembed_logits(params["embed"], x_last, self.cfg)[:, 0]
+        return L.unembed_logits(params["embed"], x_last, self.cfg, shd=shd)[:, 0]
 
-    def _embed_inputs(self, params, batch):
+    def _embed_inputs(self, params, batch, shd=L.noop_shd):
         """tokens, and a vlm's patches (B, num_vision_tokens, d_model) put
         before them -> (x, positions, prefix_len).  The patches are cast to
         the activations' dtype and, like the token embeddings, scaled by
         sqrt(d_model) under ``scale_embed``."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], batch["tokens"], cfg)
+        x = L.embed_apply(params["embed"], batch["tokens"], cfg, shd)
         prefix = 0
         if cfg.num_vision_tokens:
             patches = batch["patches"].to(x.dtype)
@@ -312,11 +344,12 @@ class LM:
                 patches = patches * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
             x = torch.cat([patches, x], dim=1)
             prefix = cfg.num_vision_tokens
+        x = shd(x, L.RESIDUAL)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         return x, positions, prefix
 
     # ------------------------------------------------------------- public
-    def loss(self, params, batch):
+    def loss(self, params, batch, shd=L.noop_shd):
         """batch: tokens (B,S), labels (B,S) (-1 = ignored), a vlm's patches.
         Returns (mean nll over the valid next-token labels, plus a MoE
         model's aux loss weighted by ``aux_loss_weight`` and averaged over
@@ -324,9 +357,9 @@ class LM:
         "aux": summed aux loss}).  A vision prefix's last position predicts
         the first text token."""
         cfg = self.cfg
-        x, positions, prefix = self._embed_inputs(params, batch)
+        x, positions, prefix = self._embed_inputs(params, batch, shd)
         x, _, aux = self._trunk(params, x, mode="train", positions=positions,
-                                prefix_len=prefix)
+                                prefix_len=prefix, shd=shd)
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if prefix:
             x = x[:, prefix - 1:-1]   # hidden states predicting each text token
@@ -334,36 +367,36 @@ class LM:
         else:
             x = x[:, :-1]
             labels = batch["labels"][:, 1:]
-        nll, cnt = L.chunked_xent(params["embed"], x, labels, cfg,
+        nll, cnt = L.chunked_xent(params["embed"], x, labels, cfg, shd,
                                   chunk=self.perf.xent_chunk)
         loss = nll / cnt.clamp(min=1).to(nll.dtype)
         if cfg.num_experts:
             loss = loss + cfg.aux_loss_weight * aux / max(cfg.num_layers, 1)
         return loss, {"nll": nll, "tokens": cnt, "aux": aux}
 
-    def prefill(self, params, batch, max_len: int, true_len=None):
+    def prefill(self, params, batch, max_len: int, true_len=None, shd=L.noop_shd):
         """Full-sequence prefill.  Returns (last-token logits (B,V) f32, fresh
         per-layer caches: KV of length ``max_len``, SSM state).  ``true_len``
         (B,) counts the valid text tokens of right-padded rows; logits come
         from the last one, and SSM state stops there.  Positions, and the
         caches, count a vision prefix first."""
         B = batch["tokens"].shape[0]
-        x, positions, prefix = self._embed_inputs(params, batch)
+        x, positions, prefix = self._embed_inputs(params, batch, shd)
         abs_len = None if true_len is None else true_len + prefix
         x, caches, _ = self._trunk(params, x, mode="prefill", positions=positions,
                                    max_len=max_len, true_len=abs_len,
-                                   prefix_len=prefix)
+                                   prefix_len=prefix, shd=shd)
         if abs_len is None:
             idx = torch.full((B,), x.shape[1] - 1, device=x.device)
         else:
             idx = (abs_len.long() - 1).clamp(min=0)
-        return self._last_logits(params, x, idx), caches
+        return self._last_logits(params, x, idx, shd), caches
 
     def _chunk_positions(self, tokens, pos0):
         C = tokens.shape[1]
         return pos0.long()[:, None] + torch.arange(C, device=tokens.device)[None, :]
 
-    def prefill_chunk(self, params, tokens, pos0, n_valid, caches):
+    def prefill_chunk(self, params, tokens, pos0, n_valid, caches, shd=L.noop_shd):
         """One chunk of a long prompt, batched over cache rows (in place).
 
         tokens (B,C) right-padded; pos0 (B,) absolute start positions;
@@ -371,40 +404,42 @@ class LM:
         is left untouched.  Returns (logits (B,V) f32 at each row's last
         valid chunk position, caches).  Text positions only: a vision
         prefix is never chunked (the engine keeps vlm prompts bucketed)."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        x = shd(L.embed_apply(params["embed"], tokens, self.cfg, shd), L.RESIDUAL)
         x, caches, _ = self._trunk(params, x, mode="chunk",
                                    positions=self._chunk_positions(tokens, pos0),
-                                   caches=caches, pos=pos0, true_len=n_valid)
+                                   caches=caches, pos=pos0, true_len=n_valid, shd=shd)
         return self._last_logits(params, x, (n_valid.long() - 1).clamp(min=0)), caches
 
-    def decode_step(self, params, tokens, pos, caches, live=None):
+    def decode_step(self, params, tokens, pos, caches, live=None, shd=L.noop_shd):
         """tokens (B,1), pos (B,) absolute positions.  ``live`` (B,) bool:
         False rows take no cache write (rows mid chunked prefill).  Returns
         (logits (B,V) f32, caches)."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        x = L.embed_apply(params["embed"], tokens, self.cfg, shd)
         x, caches, _ = self._trunk(params, x, mode="decode", positions=pos[:, None],
-                                   caches=caches, pos=pos, live=live)
-        return self._last_logits(params, x, torch.zeros_like(pos)), caches
+                                   caches=caches, pos=pos, live=live, shd=shd)
+        return self._last_logits(params, x, torch.zeros_like(pos), shd), caches
 
-    def decode_step_paged(self, params, tokens, pos, pools, block_table, live=None):
+    def decode_step_paged(self, params, tokens, pos, pools, block_table, live=None,
+                          shd=L.noop_shd):
         """Decode step against paged KV pools.  block_table (B, max_blk)
         int32, -1 = unmapped; live (B,) bool — False rows (empty or mid
         prefill) neither write their token nor count context."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        x = L.embed_apply(params["embed"], tokens, self.cfg, shd)
         x, pools, _ = self._trunk(params, x, mode="paged_decode",
                                   positions=pos[:, None], caches=pools, pos=pos,
-                                  block_table=block_table, live=live)
+                                  block_table=block_table, live=live, shd=shd)
         return self._last_logits(params, x, torch.zeros_like(pos)), pools
 
-    def prefill_chunk_paged(self, params, tokens, pos0, n_valid, pools, block_table):
+    def prefill_chunk_paged(self, params, tokens, pos0, n_valid, pools, block_table,
+                            shd=L.noop_shd):
         """Chunked prefill appending into paged pools.  A prefix-cache hit
         starts the first chunk at pos0 = n_cached.  Rows with n_valid == 0
         are left untouched."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg)
+        x = shd(L.embed_apply(params["embed"], tokens, self.cfg, shd), L.RESIDUAL)
         x, pools, _ = self._trunk(params, x, mode="paged_chunk",
                                   positions=self._chunk_positions(tokens, pos0),
                                   caches=pools, pos=pos0, true_len=n_valid,
-                                  block_table=block_table)
+                                  block_table=block_table, shd=shd)
         return self._last_logits(params, x, (n_valid.long() - 1).clamp(min=0)), pools
 
 

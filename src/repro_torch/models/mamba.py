@@ -11,6 +11,12 @@ Caches are per-row dicts ``{"h", "conv_x", "conv_B", "conv_C"}``.  The
 chunk and decode steps update them in place; a row they must leave alone
 (``true_len == 0`` in a chunk, ``live`` False in decode) comes out
 bit-unchanged.
+
+In a sharded step (``shd`` an ``Spmd``) the heads run tensor-parallel:
+each device holds its heads' projections, conv taps, decay, skip, norm
+scale and state (the head count is read off the local ``A_log``), and B
+and C (one group) whole; the output projection's partial sums are
+reduced.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import _proj
+from repro_torch.models.layers import _proj, mesh_of, noop_shd
 from repro_torch.models.params import ParamSpec
 
 f32 = torch.float32
@@ -115,6 +121,16 @@ def _out(p, y):
     return y.reshape(*y.shape[:-2], H * P) @ p["w_out"].reshape(H * P, D)
 
 
+def _reduce_out(out, cfg: ModelConfig, shd):
+    """The output projection's partial sums over the heads' axes, reduced
+    in a sharded step."""
+    sp = mesh_of(shd)
+    if sp is None:
+        return out
+    return sp.reduce(out, sp.tp((cfg.d_model, cfg.ssm_nheads, cfg.ssm_headdim),
+                                ("embed", "heads", "qkv"), 1))
+
+
 def _expand_heads(t, H: int):
     """(B,...,G,N) -> (B,...,H,N) repeating each group H//G times."""
     rep = H // t.shape[-2]
@@ -162,7 +178,7 @@ def _rows(B: int, device):
     return torch.arange(B, device=device)[:, None]
 
 
-def ssd_apply_full(p, x, cfg: ModelConfig, *, want_state: bool = False,
+def ssd_apply_full(p, x, cfg: ModelConfig, shd=noop_shd, *, want_state: bool = False,
                    true_len=None, use_kernels: bool = False):
     """Full-sequence SSD.  x: (B,S,D) -> (y, fresh cache | None).
 
@@ -177,7 +193,7 @@ def ssd_apply_full(p, x, cfg: ModelConfig, *, want_state: bool = False,
     if lead:
         x = F.pad(x, (0, 0, lead, 0))
     S = x.shape[1]
-    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    H, P, N = p["A_log"].shape[0], cfg.ssm_headdim, cfg.ssm_state
 
     z, xr, Br, Cr, dt = _project(p, x)
     xc = F.silu(_causal_conv(xr, p["conv_x"]))
@@ -200,9 +216,10 @@ def ssd_apply_full(p, x, cfg: ModelConfig, *, want_state: bool = False,
         h_last, y = _ssd_scan_chunks(xc, Bc, Cc, da, dt, h0, H, Q)
     y = y + p["D_skip"][:, None] * xc.to(f32)
     y = _gated_norm(p["norm"], y, z, cfg.norm_eps)
-    out = _out(p, y.to(x.dtype))
+    out = _out(p, shd(y.to(x.dtype), ("batch", "act_seq", "heads", "qkv")))
     if lead:
         out = out[:, lead:]
+    out = _reduce_out(out, cfg, shd)
     if not want_state:
         return out, None
     K = cfg.ssm_conv
@@ -228,7 +245,7 @@ def ssd_apply_full(p, x, cfg: ModelConfig, *, want_state: bool = False,
     return out, cache
 
 
-def ssd_apply_chunk(p, x, cache, cfg: ModelConfig, *, true_len):
+def ssd_apply_chunk(p, x, cache, cfg: ModelConfig, shd=noop_shd, *, true_len):
     """One chunked-prefill step with carried state, in place.
 
     x: (B,C,D) right-padded chunk of longer prompts; ``cache`` holds the
@@ -237,7 +254,7 @@ def ssd_apply_chunk(p, x, cache, cfg: ModelConfig, *, true_len):
     ``ssd_apply_full`` on the concatenated sequence: the causal conv reads
     the cached last K-1 raw projections.  Returns y (B,C,D)."""
     B, C, D = x.shape
-    H = cfg.ssm_nheads
+    H = p["A_log"].shape[0]
     K = cfg.ssm_conv
     z, xr, Br, Cr, dt = _project(p, x)
     xcat = torch.cat([cache["conv_x"].to(xr.dtype), xr], dim=1)
@@ -262,7 +279,7 @@ def ssd_apply_chunk(p, x, cache, cfg: ModelConfig, *, true_len):
     h_last, y = _ssd_scan_chunks(xc, Bc, Cc, da, dt, cache["h"].to(f32), H, Q)
     y = y + p["D_skip"][:, None] * xc.to(f32)
     y = _gated_norm(p["norm"], y, z, cfg.norm_eps)
-    out = _out(p, y.to(x.dtype))
+    out = _out(p, shd(y.to(x.dtype), ("batch", "act_seq", "heads", "qkv")))
     if lead:
         out = out[:, lead:]
 
@@ -276,11 +293,11 @@ def ssd_apply_chunk(p, x, cache, cfg: ModelConfig, *, true_len):
     return out
 
 
-def ssd_apply_decode(p, x, cache, cfg: ModelConfig, *, live=None):
+def ssd_apply_decode(p, x, cache, cfg: ModelConfig, shd=noop_shd, *, live=None):
     """One-token recurrent step, in place.  x: (B,1,D) -> y (B,1,D).
     Rows with ``live`` False keep every cache entry bit-unchanged (the
     state update is destructive; the select needs no device sync)."""
-    H = cfg.ssm_nheads
+    H = p["A_log"].shape[0]
     z, xr, Br, Cr, dt = _project(p, x)
     xt, nconv_x = _conv_step(cache["conv_x"], xr[:, 0], p["conv_x"])
     Bt, nconv_B = _conv_step(cache["conv_B"], Br[:, 0], p["conv_B"])
@@ -308,4 +325,4 @@ def ssd_apply_decode(p, x, cache, cfg: ModelConfig, *, live=None):
         if live is not None:
             new = torch.where(live.view(-1, *([1] * (c.dim() - 1))), new, c)
         c.copy_(new)
-    return out
+    return _reduce_out(out, cfg, shd)

@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.perf import BASELINE, PerfConfig
 from repro_torch.models import params as P
+from repro_torch.models.layers import noop_shd
 from repro_torch.models.lm import make_model, torch_dtype
 from repro_torch.training.optimizer import AdamWConfig, apply_updates
 
@@ -85,21 +86,24 @@ def make_train_step(cfg: ModelConfig, perf: PerfConfig = BASELINE,
     return model, train_step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int, perf: PerfConfig = BASELINE):
+def make_prefill_step(cfg: ModelConfig, max_len: int, perf: PerfConfig = BASELINE,
+                      shd=noop_shd):
+    """``shd``: the sharding hook; a ``distributed.spmd.Spmd`` makes the step
+    the program of one device of its mesh, on that device's shards."""
     model = make_model(cfg, perf)
 
     def prefill_step(params, batch):
-        logits, caches = model.prefill(params, batch, max_len)
+        logits, caches = model.prefill(params, batch, max_len, shd=shd)
         return logits.argmax(dim=-1), logits, caches
 
     return model, prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, perf: PerfConfig = BASELINE):
+def make_decode_step(cfg: ModelConfig, perf: PerfConfig = BASELINE, shd=noop_shd):
     model = make_model(cfg, perf)
 
     def decode_step(params, tokens, pos, caches):
-        logits, caches = model.decode_step(params, tokens, pos, caches)
+        logits, caches = model.decode_step(params, tokens, pos, caches, shd=shd)
         return logits.argmax(dim=-1), logits, caches
 
     return model, decode_step

@@ -106,11 +106,25 @@ def test_sharding_matches_reference(arch):
 
 
 def test_the_one_card_mesh():
+    """The hook is the identity on one card; on a mesh of several devices it
+    redistributes a DTensor to the placements of its spec (the rows cut
+    over ``data``) and refuses a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     prod = M.make_production_mesh()
     assert prod.shape == {"data": 1, "model": 1} and prod.size == 1
     assert M.make_debug_mesh(4, 2).axis_names == ("data", "model")
-    with pytest.raises(NotImplementedError):
-        Sharder(M.make_debug_mesh(2, 1))(torch.zeros(2), ("batch",))
+    x = torch.zeros(2)
+    assert Sharder(prod)(x, ("batch",)) is x
+    mesh = M.make_debug_mesh(2, 1)
+    with M.fake_world(mesh.size):
+        whole = DTensor.from_local(torch.arange(4.0), M.device_mesh(mesh),
+                                   [Replicate(), Replicate()], run_check=False)
+        out = Sharder(mesh)(whole, ("batch",))
+        assert tuple(out.placements) == (Shard(0), Replicate())
+        assert out.to_local().tolist() == [0.0, 1.0] and tuple(out.shape) == (4,)
+        with pytest.raises(TypeError):
+            Sharder(mesh)(x, ("batch",))
 
 
 # ------------------------------------------------------------ configs
