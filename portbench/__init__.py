@@ -1,0 +1,6 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``).
+
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` and prints one JSON
+result line.  See ``harness/runner.py`` for what a run does.
+"""

@@ -1,0 +1,8 @@
+"""Paged chunk path (``serving/engine.py`` + ``models/lm.py``): median host
+time of the window's steps that ran a chunk call (``StepStats.chunk_rows >
+0``), each ended by a synchronise, outside the profiled slice."""
+from portbench.harness import stats
+
+
+def read(run):
+    return stats.percentile(run.step_ms(chunk=True), 50)
