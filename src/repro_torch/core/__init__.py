@@ -22,5 +22,4 @@ from repro_torch.core.migration import MigrationConfig, MigrationManager  # noqa
 from repro_torch.core.predictor import EWMA, HoltWinters, WindowedAR, make_predictor  # noqa: F401
 from repro_torch.core.profiler import Profiler  # noqa: F401
 from repro_torch.core.tracing import (Span, Tracer,  # noqa: F401
-                                      attribute_slo_misses, format_attribution,
-                                      trace_id_hex)
+                                      attribute_slo_misses, trace_id_hex)

@@ -25,20 +25,41 @@ Cross-replica continuity: a migration payload carries
 a migrated request yields ONE contiguous trace spanning both replicas —
 whether the replicas share a Tracer (orchestrator) or not.
 
+Step spans: one ``engine.step`` span a step of the engine, with its phases
+as children in the order a step runs them (``STEP_PHASES``).  The engine
+times its phases on a :class:`StepClock` whether or not anything is
+recorded; with ``Tracer.record_steps`` on, and on every step that runs
+while a ``torch.profiler`` runs, each phase is also a span on
+``time.perf_counter`` and, for the chunk forward and the samplers on a
+CUDA device, a pair of CUDA events around their launches.  Their
+``device_ms`` is the stream's time between the two marks: the device's
+time for the phase where the device runs behind the host, the host's
+launch time where the device waits for it.  It is read once the device
+has passed both marks, never by a synchronise of its own.  While a
+profiler runs, each span is also a ``torch.profiler.record_function``
+range, so a profiled slice shows it beside the device's kernels; outside
+one nothing would read a range, and none is opened.  The spans of the
+last ``step_capacity`` steps are kept.
+
 Exports: :meth:`Tracer.chrome_trace` renders Chrome/Perfetto trace-event
 JSON (``ph: "X"`` complete events, microsecond timestamps, pid = replica,
-tid = rid — load the file straight into https://ui.perfetto.dev), and
-:func:`attribute_slo_misses` decomposes each missed ``slo_ttft``/``slo_tpot``
-into queue-wait vs prefill vs decode-stall vs migration time.
+tid = rid, and a ``steps`` track a replica — load the file straight into
+https://ui.perfetto.dev), and :func:`attribute_slo_misses` decomposes each
+missed ``slo_ttft``/``slo_tpot`` into queue-wait vs prefill vs
+decode-stall vs migration time.
 
 Host-side Python only (no jax, no serving imports): the serving layer
 imports this lazily, keeping the core<->serving import graph acyclic.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import time
 from typing import Any, Iterable
+
+import torch
 
 #: span names whose closed intervals must tile a request's lifetime
 PHASES = ("queue_wait", "prefill", "decode")
@@ -52,6 +73,32 @@ PHASE_BUCKET = {
     "migration_transfer": "migration",
     "handoff": "migration",
 }
+
+
+#: the children of an ``engine.step`` span, in the order a step runs them,
+#: each with the ``engine_step_seconds`` phase its host time counts to
+STEP_PHASES = {
+    "engine.admit": "admit",
+    "engine.chunk.prepare": "chunk",
+    "engine.chunk.forward": "chunk",
+    "engine.chunk.sample": "sample",
+    "engine.decode.prepare": "decode",
+    "engine.decode.forward": "decode",
+    "engine.decode.sample": "sample",
+    "engine.decode.wait": "sample",
+    "engine.emit": "emit",
+}
+
+#: the phases whose host time ``StepStats.prefill_s`` and ``decode_s`` add
+STEP_STATS = {
+    "prefill_s": ("engine.admit", "engine.chunk.prepare",
+                  "engine.chunk.forward", "engine.chunk.sample"),
+    "decode_s": ("engine.decode.prepare", "engine.decode.forward",
+                 "engine.decode.sample", "engine.decode.wait"),
+}
+
+#: the Chrome trace's thread id of a replica's ``steps`` track
+STEPS_TID = 2 ** 31 - 1
 
 
 def trace_id_hex(rid: int) -> str:
@@ -86,7 +133,8 @@ class Span:
 
 
 class _Trace:
-    __slots__ = ("rid", "spans", "next_span", "root_id", "incarnation")
+    __slots__ = ("rid", "spans", "next_span", "root_id", "incarnation",
+                 "chunks")
 
     def __init__(self, rid: int, next_span: int = 0,
                  root_id: int | None = None, incarnation: int = 0):
@@ -95,6 +143,7 @@ class _Trace:
         self.next_span = next_span
         self.root_id = root_id
         self.incarnation = incarnation
+        self.chunks = 0             # prefill_chunk[k] annotations so far
 
 
 class Tracer:
@@ -105,11 +154,25 @@ class Tracer:
     to every replica), so a migrated request's spans land in the same trace
     naturally; independent Tracers stay contiguous through
     export_context/import_context carried in the migration payload.
+
+    ``record_steps`` (off by default) switches the engines' step spans on;
+    a shared Tracer switches them for every replica.  A step that runs
+    while a ``torch.profiler`` runs is recorded whatever the switch, so a
+    profile carries the phases its kernels are read against.
     """
+
+    #: steps whose spans the ring keeps
+    step_capacity = 8192
 
     def __init__(self):
         self._live: dict[int, _Trace] = {}
         self._archive: list[_Trace] = []
+        self.record_steps = False
+        self._steps: collections.deque[list[Span]] = collections.deque(
+            maxlen=self.step_capacity)
+        self._step_no = 0
+        # (span, start, end) CUDA events the device has not passed yet
+        self._pending: list[tuple[Span, Any, Any]] = []
 
     # ------------------------------------------------------------ lifecycle
     def start_trace(self, rid: int, t: float, replica: str | None = None,
@@ -220,17 +283,50 @@ class Tracer:
                 return s
         return None
 
-    def count(self, rid: int, prefix: str) -> int:
-        """Spans in the live trace whose base name matches ``prefix`` —
-        numbers ``prefill_chunk[k]`` across replicas and preempt restarts."""
+    def annotate_chunk(self, rid: int, t: float, replica: str | None = None,
+                       **attrs) -> Span | None:
+        """Record the trace's next ``prefill_chunk[k]`` instant: k counts
+        the live trace's chunks across replicas sharing this Tracer and
+        preempt restarts."""
         tr = self._live.get(rid)
         if tr is None:
-            return 0
-        return sum(1 for s in tr.spans if _base(s.name) == prefix)
+            return None
+        tr.chunks += 1
+        return self.annotate(rid, f"prefill_chunk[{tr.chunks - 1}]", t,
+                             replica=replica, **attrs)
 
     def traces(self) -> Iterable[_Trace]:
         yield from self._archive
         yield from self._live.values()
+
+    # ---------------------------------------------------------- step spans
+    def step_clock(self, now: float, replica: str | None = None,
+                   cuda: bool = False) -> StepClock:
+        """The stopwatch of one engine step (``now``: the step's clock
+        value); it records the step's spans while ``record_steps`` is on
+        or a profiler runs, with CUDA events on the device phases where
+        ``cuda``, and ranges while a profiler runs."""
+        profiled = torch._C._autograd._profiler_enabled()
+        if not (self.record_steps or profiled):
+            return StepClock()
+        return StepClock(_StepRecorder(self, now, replica, cuda, profiled))
+
+    def step_spans(self) -> list[list[Span]]:
+        """The kept steps, oldest first: each its ``engine.step`` span, then
+        its phases in order.  A device phase's ``device_ms`` is filled here
+        or at the end of a later step, once the device has passed both its
+        events (``Event.query``); None until then."""
+        self._resolve()
+        return list(self._steps)
+
+    def _resolve(self) -> None:
+        keep = []
+        for span, e0, e1 in self._pending:
+            if e1.query():
+                span.attrs["device_ms"] = e0.elapsed_time(e1)
+            else:
+                keep.append((span, e0, e1))
+        self._pending = keep
 
     # ------------------------------------------------ cross-replica context
     def export_context(self, rid: int) -> dict | None:
@@ -301,18 +397,24 @@ class Tracer:
     def chrome_trace(self) -> dict:
         """Chrome/Perfetto trace-event JSON: one complete (``ph: "X"``)
         event per span, timestamps in microseconds, pid = replica,
-        tid = rid.  Archived incarnations are included."""
+        tid = rid; the kept step spans on each replica's ``steps`` track
+        (tid ``STEPS_TID``).  Archived incarnations are included."""
         events: list[dict] = []
         pids: dict[int, str] = {}
         tids: set[tuple[int, int]] = set()
+
+        def pid_of(replica) -> int:
+            try:
+                pid = int(replica) if replica is not None else 0
+            except ValueError:
+                pid = abs(hash(replica)) % 1000
+            pids.setdefault(pid, f"replica {replica}"
+                            if replica is not None else "replica ?")
+            return pid
+
         for tr in self.traces():
             for s in tr.spans:
-                try:
-                    pid = int(s.replica) if s.replica is not None else 0
-                except ValueError:
-                    pid = abs(hash(s.replica)) % 1000
-                pids.setdefault(pid, f"replica {s.replica}"
-                                if s.replica is not None else "replica ?")
+                pid = pid_of(s.replica)
                 tids.add((pid, tr.rid))
                 t1 = s.t0 if s.t1 is None else s.t1
                 args = dict(s.attrs)
@@ -325,17 +427,185 @@ class Tracer:
                     "ts": s.t0 * 1e6, "dur": max(t1 - s.t0, 0.0) * 1e6,
                     "pid": pid, "tid": tr.rid, "args": args,
                 })
+        step_pids = set()
+        for spans in self.step_spans():
+            for s in spans:
+                pid = pid_of(s.replica)
+                step_pids.add(pid)
+                args = dict(s.attrs, step=s.trace_id, span_id=s.span_id)
+                if s.parent_id is not None:
+                    args["parent_id"] = s.parent_id
+                events.append({
+                    "name": s.name, "cat": "step", "ph": "X",
+                    "ts": s.t0 * 1e6, "dur": max(s.duration, 0.0) * 1e6,
+                    "pid": pid, "tid": STEPS_TID, "args": args,
+                })
         meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
                  "args": {"name": label}}
                 for pid, label in sorted(pids.items())]
         meta += [{"name": "thread_name", "ph": "M", "pid": pid, "tid": rid,
                   "args": {"name": f"rid {rid}"}}
                  for pid, rid in sorted(tids)]
+        meta += [{"name": "thread_name", "ph": "M", "pid": pid,
+                  "tid": STEPS_TID, "args": {"name": "steps"}}
+                 for pid in sorted(step_pids)]
         return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
 
     def write_chrome_trace(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f)
+
+
+# ------------------------------------------------------------ step clock
+class StepClock:
+    """One engine step's phases on the host clock.  ``enter(name)`` ends
+    the running phase and starts ``name`` (a key of ``STEP_PHASES``);
+    ``leave()`` ends it; ``finish(**attrs)`` ends the step.  ``seconds``
+    adds each phase's host time by name, recording or not.  Recording makes
+    each phase a span as well; off, a phase costs a clock reading and the
+    one check of ``_rec``."""
+
+    __slots__ = ("seconds", "_name", "_t", "_rec")
+
+    def __init__(self, rec: _StepRecorder | None = None):
+        self.seconds: dict[str, float] = {}
+        self._name: str | None = None
+        self._t = 0.0
+        self._rec = rec
+
+    @property
+    def recording(self) -> bool:
+        return self._rec is not None
+
+    @property
+    def ranges(self) -> bool:
+        """Whether this step opens ``record_function`` ranges: it records
+        and a profiler runs."""
+        return self._rec is not None and self._rec.ranges
+
+    def _stop(self) -> float:
+        t = time.perf_counter()
+        if self._name is not None:
+            self.seconds[self._name] = (self.seconds.get(self._name, 0.0)
+                                        + t - self._t)
+            self._name = None
+        return t
+
+    def enter(self, name: str, device: bool = False) -> None:
+        """Start phase ``name``; ``device``: time it on the device too."""
+        t = self._stop()
+        self._name, self._t = name, t
+        if self._rec is not None:
+            self._rec.enter(name, t, device)
+
+    def end_device(self) -> None:
+        """Mark the end of the running phase's device work, before the
+        host goes on to wait for it within the phase."""
+        if self._rec is not None:
+            self._rec.end_device()
+
+    def leave(self) -> None:
+        t = self._stop()
+        if self._rec is not None:
+            self._rec.leave(t)
+
+    def stats(self) -> dict[str, float]:
+        """Host seconds of the phases so far by ``StepStats`` field
+        (``STEP_STATS``)."""
+        return {field: sum(self.seconds.get(n, 0.0) for n in names)
+                for field, names in STEP_STATS.items()}
+
+    def phases(self) -> dict[str, float]:
+        """Host seconds by ``engine_step_seconds`` phase of the phases
+        entered, the running one up to now."""
+        out: dict[str, float] = {}
+        for name, s in self.seconds.items():
+            out[STEP_PHASES[name]] = out.get(STEP_PHASES[name], 0.0) + s
+        if self._name is not None:
+            ph = STEP_PHASES[self._name]
+            out[ph] = out.get(ph, 0.0) + time.perf_counter() - self._t
+        return out
+
+    def finish(self, **attrs) -> None:
+        """End the step; ``attrs`` go on its ``engine.step`` span."""
+        t = self._stop()
+        if self._rec is not None:
+            self._rec.finish(t, attrs)
+            self._rec = None
+
+    def close(self) -> None:
+        """End the ranges of a step that raised (a no-op once finished)."""
+        if self._rec is not None:
+            self._rec.abort()
+            self._rec = None
+
+
+class _StepRecorder:
+    """The spans of a running step: ``engine.step`` first, then its phases;
+    a device phase's start event until its end is recorded; while a
+    profiler runs (``ranges``, read once a step), each open span's
+    ``record_function`` range."""
+
+    __slots__ = ("tracer", "cuda", "spans", "ranges", "open", "start")
+
+    def __init__(self, tracer: Tracer, now: float, replica: str | None,
+                 cuda: bool, ranges: bool):
+        self.tracer, self.cuda, self.ranges = tracer, cuda, ranges
+        self.open: list = []
+        self._range("engine.step")
+        self.spans = [Span(trace_id=tracer._step_no, span_id=0,
+                           name="engine.step", t0=time.perf_counter(),
+                           replica=replica, attrs={"now": now})]
+        tracer._step_no += 1
+        self.start = None
+
+    def _range(self, name: str) -> None:
+        if self.ranges:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            self.open.append(rf)
+
+    def enter(self, name: str, t: float, device: bool) -> None:
+        self.leave(t)
+        self._range(name)
+        step = self.spans[0]
+        self.spans.append(Span(trace_id=step.trace_id, span_id=len(self.spans),
+                               name=name, t0=t, parent_id=0,
+                               replica=step.replica))
+        if device and self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def end_device(self) -> None:
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            span = self.spans[-1]
+            span.attrs["device_ms"] = None
+            self.tracer._pending.append((span, self.start, end))
+            self.start = None
+
+    def leave(self, t: float) -> None:
+        span = self.spans[-1]
+        if span.span_id == 0 or span.t1 is not None:
+            return
+        self.end_device()
+        if self.ranges:
+            self.open.pop().__exit__(None, None, None)
+        span.t1 = t
+
+    def finish(self, t: float, attrs: dict) -> None:
+        self.leave(t)
+        step = self.spans[0]
+        step.attrs.update(attrs)
+        step.t1 = t
+        self.abort()
+        self.tracer._steps.append(self.spans)
+        self.tracer._resolve()
+
+    def abort(self) -> None:
+        while self.open:
+            self.open.pop().__exit__(None, None, None)
 
 
 # ------------------------------------------------------- SLO-miss attribution
@@ -398,19 +668,3 @@ def attribute_slo_misses(tracer: Tracer, requests) -> list[dict]:
             })
     rows.sort(key=lambda r: -(r["actual"] - r["target"]))
     return rows
-
-
-def format_attribution(rows: list[dict]) -> str:
-    """Plain-text SLO-miss attribution table."""
-    if not rows:
-        return "SLO-miss attribution: no misses\n"
-    hdr = (f"{'rid':>6} {'slo':>5} {'target':>8} {'actual':>8} "
-           f"{'queue':>8} {'prefill':>8} {'stall':>8} {'migr':>8}  dominant")
-    lines = ["SLO-miss attribution:", hdr, "-" * len(hdr)]
-    for r in rows:
-        lines.append(
-            f"{r['rid']:>6} {r['slo']:>5} {r['target']:>8.3f} "
-            f"{r['actual']:>8.3f} {r['queue_wait']:>8.3f} "
-            f"{r['prefill']:>8.3f} {r['decode_stall']:>8.3f} "
-            f"{r['migration']:>8.3f}  {r['dominant']}")
-    return "\n".join(lines) + "\n"

@@ -137,8 +137,9 @@ def main(argv=None):
                     help="the dry run's mesh: one card, or the reference's "
                          "16x16 / 2x16x16 meshes of H100s (per card)")
     ap.add_argument("--trace-out", default=None,
-                    help="write the request-lifecycle trace as Chrome/"
-                         "Perfetto trace-event JSON to this path")
+                    help="record the engines' step spans and write them with "
+                         "the request-lifecycle trace as Chrome/Perfetto "
+                         "trace-event JSON to this path")
     ap.add_argument("--metrics-out", default=None,
                     help="write a Prometheus text exposition of the cluster "
                          "metrics registry to this path")
@@ -157,6 +158,8 @@ def main(argv=None):
     resolve_device(args.device)     # no GPU and no --device cpu: raise
     cfg = get_config(args.arch + "-smoke")
     registry = _build_registry(args, cfg)
+    # the trace shows each replica's steps beside the requests
+    registry.tracer.record_steps = bool(args.trace_out)
     _print_models(registry)
     rc = _serve_stream(args, cfg, registry) if args.stream \
         else _serve_batch(args, cfg, registry)
@@ -164,7 +167,8 @@ def main(argv=None):
     if args.trace_out:
         registry.tracer.write_chrome_trace(args.trace_out)
         print(f"trace written to {args.trace_out} "
-              f"({sum(1 for _ in registry.tracer.traces())} traces)")
+              f"({sum(1 for _ in registry.tracer.traces())} traces, "
+              f"{len(registry.tracer.step_spans())} steps)")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             f.write(registry.metrics.render())

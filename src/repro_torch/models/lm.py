@@ -30,6 +30,7 @@ run on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -54,7 +55,17 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
 class LM:
+    #: ``torch.profiler.record_function`` ranges around the embedding
+    #: (``lm.embed``), the write-slot plan (``lm.slots``), each layer's mixer
+    #: (``lm.attention`` / ``lm.ssm``) and MLP (``lm.mlp`` / ``lm.moe``) and
+    #: the logits (``lm.logits``); the engine turns them on for the steps its
+    #: tracer records while a profiler runs
+    ranges = False
+
     def __init__(self, cfg: ModelConfig, perf: PerfConfig = BASELINE):
         self.cfg = cfg
         self.perf = perf
@@ -103,6 +114,13 @@ class LM:
                 for _ in range(cfg.num_layers)]
 
     # ------------------------------------------------------------- blocks
+    def _range(self, name: str):
+        return torch.profiler.record_function(name) if self.ranges else _NO_RANGE
+
+    def _embed(self, params, tokens, shd):
+        with self._range("lm.embed"):
+            return L.embed_apply(params["embed"], tokens, self.cfg, shd)
+
     def _theta(self, kind: str) -> float:
         cfg = self.cfg
         return cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
@@ -253,23 +271,26 @@ class LM:
         sp = L.mesh_of(shd)
         if sp is not None:
             p = sp.weights(p, block_specs(cfg, kind, self.moes[i]))
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        if kind == "ssm":
-            mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache, shd=shd,
-                                true_len=kw["true_len"], live=kw["live"])
-        else:
-            mix, nc = self._attend(p["mixer"], h, kind, mode=mode, cache=cache,
-                                   slots=slots, angles=angles[self._theta(kind)],
-                                   shd=shd, **kw)
-        x = x + mix
+        with self._range("lm.ssm" if kind == "ssm" else "lm.attention"):
+            h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+            if kind == "ssm":
+                mix, nc = self._ssm(p["mixer"], h, mode=mode, cache=cache, shd=shd,
+                                    true_len=kw["true_len"], live=kw["live"])
+            else:
+                mix, nc = self._attend(p["mixer"], h, kind, mode=mode, cache=cache,
+                                       slots=slots, angles=angles[self._theta(kind)],
+                                       shd=shd, **kw)
+            x = x + mix
         aux = None
         if self.moes[i]:
-            y, aux = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                                 shd)
-            x = x + y
+            with self._range("lm.moe"):
+                y, aux = L.moe_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                                     cfg, shd)
+                x = x + y
         elif cfg.d_ff:    # at d_ff = 0 the reference's MLP adds exactly 0
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg,
-                                shd)
+            with self._range("lm.mlp"):
+                x = x + L.mlp_apply(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                                    cfg, shd)
         return x, nc, aux
 
     def _trunk(self, params, x, *, mode, positions, caches=None, pos=None,
@@ -287,8 +308,9 @@ class LM:
         kinds = self.kinds[lo:lo + len(layers)]
         slots = angles = None
         if any(k != "ssm" for k in kinds):
-            slots = self._write_slots(mode, x.shape[1], kinds, caches, pos, true_len,
-                                      block_table, live)
+            with self._range("lm.slots"):
+                slots = self._write_slots(mode, x.shape[1], kinds, caches, pos,
+                                          true_len, block_table, live)
             # one rope table for each theta (gemma3: local and global), none
             # without rope (jamba)
             angles = {th: L.rope_angles(positions, cfg.head_dim, th) if cfg.use_rope
@@ -325,10 +347,11 @@ class LM:
 
     def _last_logits(self, params, x, idx, shd=L.noop_shd):
         """Final norm + f32 logits at per-row sequence index ``idx`` (B,)."""
-        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        rows = torch.arange(x.shape[0], device=x.device)
-        x_last = x[rows, idx.long()][:, None]
-        return L.unembed_logits(params["embed"], x_last, self.cfg, shd=shd)[:, 0]
+        with self._range("lm.logits"):
+            x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+            rows = torch.arange(x.shape[0], device=x.device)
+            x_last = x[rows, idx.long()][:, None]
+            return L.unembed_logits(params["embed"], x_last, self.cfg, shd=shd)[:, 0]
 
     def _embed_inputs(self, params, batch, shd=L.noop_shd):
         """tokens, and a vlm's patches (B, num_vision_tokens, d_model) put
@@ -336,7 +359,7 @@ class LM:
         the activations' dtype and, like the token embeddings, scaled by
         sqrt(d_model) under ``scale_embed``."""
         cfg = self.cfg
-        x = L.embed_apply(params["embed"], batch["tokens"], cfg, shd)
+        x = self._embed(params, batch["tokens"], shd)
         prefix = 0
         if cfg.num_vision_tokens:
             patches = batch["patches"].to(x.dtype)
@@ -404,7 +427,7 @@ class LM:
         is left untouched.  Returns (logits (B,V) f32 at each row's last
         valid chunk position, caches).  Text positions only: a vision
         prefix is never chunked (the engine keeps vlm prompts bucketed)."""
-        x = shd(L.embed_apply(params["embed"], tokens, self.cfg, shd), L.RESIDUAL)
+        x = shd(self._embed(params, tokens, shd), L.RESIDUAL)
         x, caches, _ = self._trunk(params, x, mode="chunk",
                                    positions=self._chunk_positions(tokens, pos0),
                                    caches=caches, pos=pos0, true_len=n_valid, shd=shd)
@@ -414,7 +437,7 @@ class LM:
         """tokens (B,1), pos (B,) absolute positions.  ``live`` (B,) bool:
         False rows take no cache write (rows mid chunked prefill).  Returns
         (logits (B,V) f32, caches)."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg, shd)
+        x = self._embed(params, tokens, shd)
         x, caches, _ = self._trunk(params, x, mode="decode", positions=pos[:, None],
                                    caches=caches, pos=pos, live=live, shd=shd)
         return self._last_logits(params, x, torch.zeros_like(pos), shd), caches
@@ -424,7 +447,7 @@ class LM:
         """Decode step against paged KV pools.  block_table (B, max_blk)
         int32, -1 = unmapped; live (B,) bool — False rows (empty or mid
         prefill) neither write their token nor count context."""
-        x = L.embed_apply(params["embed"], tokens, self.cfg, shd)
+        x = self._embed(params, tokens, shd)
         x, pools, _ = self._trunk(params, x, mode="paged_decode",
                                   positions=pos[:, None], caches=pools, pos=pos,
                                   block_table=block_table, live=live, shd=shd)
@@ -435,7 +458,7 @@ class LM:
         """Chunked prefill appending into paged pools.  A prefix-cache hit
         starts the first chunk at pos0 = n_cached.  Rows with n_valid == 0
         are left untouched."""
-        x = shd(L.embed_apply(params["embed"], tokens, self.cfg, shd), L.RESIDUAL)
+        x = shd(self._embed(params, tokens, shd), L.RESIDUAL)
         x, pools, _ = self._trunk(params, x, mode="paged_chunk",
                                   positions=self._chunk_positions(tokens, pos0),
                                   caches=pools, pos=pos0, true_len=n_valid,

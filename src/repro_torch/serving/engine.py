@@ -195,9 +195,22 @@ class InferenceEngine:
         """Host array -> tensor on the engine's device."""
         return torch.as_tensor(a, device=self.device)
 
-    def _sample(self, logits, temp, topk, topp) -> np.ndarray:
+    def _sample(self, logits, temp, topk, topp, clock=None,
+                part: str = "decode") -> np.ndarray:
+        """Launch the sampler, then wait for its tokens on the host
+        (``.cpu()``).  Within a step (``clock``) the launch is phase
+        ``engine.<part>.sample``, its device time ending at the launch's
+        end; a decode step's wait is ``engine.decode.wait`` and a chunk
+        call's stays in its sample phase."""
+        if clock is not None:
+            clock.enter(f"engine.{part}.sample", device=True)
         out = sample(logits.float(), self.generator, self._t(temp),
                      self._t(topk), self._t(topp))
+        if clock is not None:
+            if part == "decode":
+                clock.enter("engine.decode.wait")
+            else:
+                clock.end_device()
         return out.cpu().numpy()
 
     @torch.no_grad()
@@ -364,9 +377,8 @@ class InferenceEngine:
             assert row is not None
             req.row, req.state, req.t_admit = row, State.PREFILL, now
             self._trace_admit(req, now, kind=f"bucket{bucket}", row=row)
-            self.tracer.annotate(req.rid, "prefill_chunk[0]", now,
-                                 replica=self._rlabel,
-                                 tokens=len(req.prompt), pos0=0)
+            self.tracer.annotate_chunk(req.rid, now, replica=self._rlabel,
+                                       tokens=len(req.prompt), pos0=0)
             rows.append(row)
             toks[i, : len(req.prompt)] = req.prompt
             true[i] = len(req.prompt)
@@ -469,20 +481,22 @@ class InferenceEngine:
         return row
 
     @torch.no_grad()
-    def _run_chunks(self, rows_n: dict[int, int], now: float) -> None:
+    def _run_chunks(self, rows_n: dict[int, int], now: float, clock) -> None:
         """Advance the selected mid-prefill rows by one chunk each (one
-        pool-wide call); promote rows that consumed their prompt."""
+        pool-wide call of every row's whole chunk); promote rows that
+        consumed their prompt."""
+        clock.enter("engine.chunk.prepare")
         B, C = self.capacity, self.chunk
         toks = np.zeros((B, C), np.int64)
         pos0 = np.zeros((B,), np.int64)
         nval = np.zeros((B,), np.int64)
         fresh = []
+        done_rows = []
         for row, n in rows_n.items():
             req = self._prefilling[row]
             c0 = self._consumed[row]
-            k = self.tracer.count(req.rid, "prefill_chunk")
-            self.tracer.annotate(req.rid, f"prefill_chunk[{k}]", now,
-                                 replica=self._rlabel, tokens=n, pos0=c0)
+            self.tracer.annotate_chunk(req.rid, now, replica=self._rlabel,
+                                       tokens=n, pos0=c0)
             toks[row, :n] = req.prompt[c0:c0 + n]
             pos0[row] = c0
             nval[row] = n
@@ -492,10 +506,16 @@ class InferenceEngine:
                 # map blocks for this chunk's span; CoW a shared first block
                 self._ensure_blocks(row, c0 + n)
                 self._ensure_writable(row, c0 // self.block_size)
+            self._consumed[row] = c0 + n
+            self.pos[row] = c0 + n
+            if c0 + n >= len(req.prompt):
+                done_rows.append(row)
+        self._fresh -= set(rows_n)
         if self.paged:
-            logits, _ = self.model.prefill_chunk_paged(
-                self.params, self._t(toks), self._t(pos0), self._t(nval),
-                self.caches, self._t(self.block_tables))
+            args = (self._t(toks), self._t(pos0), self._t(nval), self.caches,
+                    self._t(self.block_tables))
+            clock.enter("engine.chunk.forward", device=True)
+            logits, _ = self.model.prefill_chunk_paged(self.params, *args)
         else:
             if fresh:
                 # a reused row must not leak its previous occupant's KV,
@@ -504,19 +524,14 @@ class InferenceEngine:
                 for t, ax, fill in P.tree_zip(self.caches, self._batch_axes,
                                               self._reset_vals):
                     t.index_fill_(ax, idx, fill)
-            logits, _ = self.model.prefill_chunk(
-                self.params, self._t(toks), self._t(pos0), self._t(nval),
-                self.caches)
-        self._fresh -= set(rows_n)
-        done_rows = []
-        for row, n in rows_n.items():
-            self._consumed[row] += n
-            self.pos[row] = self._consumed[row]
-            if self._consumed[row] >= len(self._prefilling[row].prompt):
-                done_rows.append(row)
+            args = (self._t(toks), self._t(pos0), self._t(nval), self.caches)
+            clock.enter("engine.chunk.forward", device=True)
+            logits, _ = self.model.prefill_chunk(self.params, *args)
+        clock.leave()
         if not done_rows:
             return
-        sampled = self._sample(logits, self._temp, self._topk, self._topp)
+        sampled = self._sample(logits, self._temp, self._topk, self._topp,
+                               clock, "chunk")
         for row in done_rows:
             req = self._prefilling.pop(row)
             del self._consumed[row]
@@ -622,7 +637,8 @@ class InferenceEngine:
             "engine_kv_frag", "Wasted tail-of-block KV slots fraction",
             ("replica",))
         self._h_step = registry.histogram(
-            "engine_step_seconds", "Wall seconds per step phase",
+            "engine_step_seconds",
+            "Host seconds per step phase (admit / chunk / decode / sample / emit)",
             ("replica", "phase"))
         if self.paged:
             self._c_prefix = registry.counter(
@@ -637,18 +653,20 @@ class InferenceEngine:
                 "prefix_cache_blocks", "KV blocks by state (used / cached)",
                 ("replica", "kind"))
 
-    def _observe_step(self, st: StepStats) -> None:
-        """Mirror one StepStats into the registry (never affects serving)."""
+    def _observe_step(self, st: StepStats, phases: dict[str, float]) -> None:
+        """Mirror one StepStats and the host seconds of the step's phases
+        (admit / chunk / decode / sample / emit, those it ran) into the
+        registry (never affects serving)."""
         rl = self._rlabel
         if st.prefill_tokens:
             self._c_prefill_tok.inc(st.prefill_tokens_true, replica=rl,
                                     kind="true")
             self._c_prefill_tok.inc(st.prefill_tokens_padded, replica=rl,
                                     kind="padded")
-            self._h_step.observe(st.prefill_s, replica=rl, phase="prefill")
         if st.tokens_out:
             self._c_decode_tok.inc(st.tokens_out, replica=rl)
-            self._h_step.observe(st.decode_s, replica=rl, phase="decode")
+        for phase, s in phases.items():
+            self._h_step.observe(s, replica=rl, phase=phase)
         if st.n_prefill:
             self._c_admissions.inc(st.n_prefill, replica=rl)
         self._g_occupancy.set(st.occupancy / max(self.capacity, 1), replica=rl)
@@ -726,9 +744,22 @@ class InferenceEngine:
     @torch.no_grad()
     def step(self, now: float | None = None) -> StepStats:
         """One engine iteration: chunk continuations -> admit (batched
-        bucket prefills + new chunk starts) -> one decode step."""
+        bucket prefills + new chunk starts) -> one decode step.  Its phases
+        (``core.tracing.STEP_PHASES``) run on one stopwatch, which
+        ``StepStats``, ``engine_step_seconds`` and, while the tracer
+        records steps or a profiler runs, the step's spans read; the model's ranges open with
+        the step's while a profiler runs."""
         now = time.perf_counter() if now is None else now
-        t0 = time.perf_counter()
+        clock = self.tracer.step_clock(now, self._rlabel,
+                                       self.device.type == "cuda")
+        self.model.ranges = clock.ranges
+        try:
+            return self._step(now, clock)
+        finally:
+            clock.close()
+
+    def _step(self, now: float, clock) -> StepStats:
+        clock.enter("engine.admit")
         budget = self.scheduler.cfg.prefill_token_budget
         # a non-positive budget would starve admission forever
         remaining = math.inf if budget is None else max(budget, 1)
@@ -802,14 +833,12 @@ class InferenceEngine:
 
         # 3. one pool-wide chunk call for all advancing rows
         if rows_n:
-            self._run_chunks(rows_n, now)
-        t_pre = time.perf_counter() - t0
+            self._run_chunks(rows_n, now, clock)
 
         # 4. decode
         tokens_out = 0
-        t_dec = 0.0
         if self.row_req:
-            t0 = time.perf_counter()
+            clock.enter("engine.decode.prepare")
             if self.paged:
                 # map the block each row's next token lands in (CoW'd if
                 # shared); rows that are not live write nothing
@@ -819,9 +848,10 @@ class InferenceEngine:
                     self._ensure_blocks(row, int(self.pos[row]) + 1)
                     self._ensure_writable(
                         row, int(self.pos[row]) // self.block_size)
-                logits, _ = self.model.decode_step_paged(
-                    self.params, self._t(self.tokens), self._t(self.pos),
-                    self.caches, self._t(self.block_tables), self._t(live))
+                args = (self._t(self.tokens), self._t(self.pos), self.caches,
+                        self._t(self.block_tables), self._t(live))
+                clock.enter("engine.decode.forward")
+                logits, _ = self.model.decode_step_paged(self.params, *args)
             else:
                 # rows mid chunked prefill must not take the decode write
                 # (each layer's cache writer masks it, every entry)
@@ -830,11 +860,13 @@ class InferenceEngine:
                     live = np.ones((self.capacity,), bool)
                     live[list(self._prefilling)] = False
                     live = self._t(live)
-                logits, _ = self.model.decode_step(
-                    self.params, self._t(self.tokens), self._t(self.pos),
-                    self.caches, live=live)
-            sampled = self._sample(logits, self._temp, self._topk, self._topp)
-            t_dec = time.perf_counter() - t0
+                args = (self._t(self.tokens), self._t(self.pos), self.caches)
+                clock.enter("engine.decode.forward")
+                logits, _ = self.model.decode_step(self.params, *args, live=live)
+            clock.leave()
+            sampled = self._sample(logits, self._temp, self._topk, self._topp,
+                                   clock, "decode")
+            clock.enter("engine.emit")
             for row, req in list(self.row_req.items()):
                 t = int(sampled[row])
                 req.output.append(t)
@@ -849,8 +881,10 @@ class InferenceEngine:
                         or (stop is not None and t == stop)
                         or self.pos[row] >= self.max_len - 1):
                     self._retire(row, now)
+        else:
+            clock.enter("engine.emit")
 
-        st = StepStats(t=now, decode_s=t_dec, prefill_s=t_pre,
+        st = StepStats(t=now, **clock.stats(),
                        n_prefill=admitted, occupancy=self.pool.used,
                        queue_depth=self.scheduler.depth(), tokens_out=tokens_out,
                        prefill_tokens=prefill_tokens, chunk_rows=len(rows_n),
@@ -869,8 +903,12 @@ class InferenceEngine:
             st.kv_frag = 0.0 if alloc == 0 else 1.0 - live_tok / alloc
         else:
             st.kv_util = self.pool.utilization()
-        self._observe_step(st)
+        self._observe_step(st, clock.phases())
         self.history.append(st)
+        # a chunk call computes a (capacity, chunk) block on either backend
+        clock.finish(kind="chunk" if rows_n else "decode",
+                     positions_computed=self.capacity * self.chunk if rows_n else 0,
+                     tokens_valid=sum(rows_n.values()))
         return st
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
