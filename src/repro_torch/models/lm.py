@@ -457,7 +457,9 @@ class LM:
                             shd=L.noop_shd):
         """Chunked prefill appending into paged pools.  A prefix-cache hit
         starts the first chunk at pos0 = n_cached.  Rows with n_valid == 0
-        are left untouched."""
+        are left untouched.  block_table (B, n_blk) need only cover the
+        blocks up to the furthest position written: the keys it leaves out
+        are masked ones."""
         x = shd(self._embed(params, tokens, shd), L.RESIDUAL)
         x, pools, _ = self._trunk(params, x, mode="paged_chunk",
                                   positions=self._chunk_positions(tokens, pos0),

@@ -481,15 +481,20 @@ class InferenceEngine:
         return row
 
     @torch.no_grad()
-    def _run_chunks(self, rows_n: dict[int, int], now: float, clock) -> None:
-        """Advance the selected mid-prefill rows by one chunk each (one
-        pool-wide call of every row's whole chunk); promote rows that
-        consumed their prompt."""
+    def _run_chunks(self, rows_n: dict[int, int], now: float, clock) -> int:
+        """Advance the selected mid-prefill rows by one chunk each, in one
+        call; promote rows that consumed their prompt.  The paged call runs
+        over the advancing rows alone (ascending) and the blocks they map:
+        the pools are shared through the block table.  The dense call runs
+        over the whole pool, whose rows are its caches.  Returns the
+        positions the call computed."""
         clock.enter("engine.chunk.prepare")
-        B, C = self.capacity, self.chunk
-        toks = np.zeros((B, C), np.int64)
-        pos0 = np.zeros((B,), np.int64)
-        nval = np.zeros((B,), np.int64)
+        C = self.chunk
+        call_rows = sorted(rows_n) if self.paged else list(range(self.capacity))
+        at = {row: i for i, row in enumerate(call_rows)}
+        toks = np.zeros((len(call_rows), C), np.int64)
+        pos0 = np.zeros((len(call_rows),), np.int64)
+        nval = np.zeros((len(call_rows),), np.int64)
         fresh = []
         done_rows = []
         for row, n in rows_n.items():
@@ -497,9 +502,9 @@ class InferenceEngine:
             c0 = self._consumed[row]
             self.tracer.annotate_chunk(req.rid, now, replica=self._rlabel,
                                        tokens=n, pos0=c0)
-            toks[row, :n] = req.prompt[c0:c0 + n]
-            pos0[row] = c0
-            nval[row] = n
+            toks[at[row], :n] = req.prompt[c0:c0 + n]
+            pos0[at[row]] = c0
+            nval[at[row]] = n
             if row in self._fresh:
                 fresh.append(row)
             if self.paged:
@@ -512,8 +517,11 @@ class InferenceEngine:
                 done_rows.append(row)
         self._fresh -= set(rows_n)
         if self.paged:
+            # the table's columns up to the furthest position written: keys
+            # past it are masked, writes past it none
+            n_blk = -(-int((pos0 + nval).max()) // self.block_size)
             args = (self._t(toks), self._t(pos0), self._t(nval), self.caches,
-                    self._t(self.block_tables))
+                    self._t(self.block_tables[call_rows, :n_blk]))
             clock.enter("engine.chunk.forward", device=True)
             logits, _ = self.model.prefill_chunk_paged(self.params, *args)
         else:
@@ -529,7 +537,13 @@ class InferenceEngine:
             logits, _ = self.model.prefill_chunk(self.params, *args)
         clock.leave()
         if not done_rows:
-            return
+            return len(call_rows) * C
+        if self.paged:
+            # the sampler sees the pool's rows, so each row's draw is the
+            # one a pool-wide call gives it
+            full = logits.new_zeros((self.capacity, logits.shape[1]))
+            logits = full.index_copy_(0, self._t(np.asarray(call_rows, np.int64)),
+                                      logits)
         sampled = self._sample(logits, self._temp, self._topk, self._topp,
                                clock, "chunk")
         for row in done_rows:
@@ -546,6 +560,7 @@ class InferenceEngine:
             self._trace_first_token(req, now)
             self._emit_first_token(req, t, now)
             self._maybe_finish_first(row, req, now)
+        return len(call_rows) * C
 
     def _maybe_finish_first(self, row: int, req: Request, now: float) -> None:
         """A request can be complete at its first (prefill) token, in which
@@ -831,9 +846,8 @@ class InferenceEngine:
             prefill_tokens += self._admit_batch(groups[bucket], bucket, now)
             prefill_padded += bucket * len(groups[bucket])
 
-        # 3. one pool-wide chunk call for all advancing rows
-        if rows_n:
-            self._run_chunks(rows_n, now, clock)
+        # 3. one chunk call for all advancing rows
+        positions = self._run_chunks(rows_n, now, clock) if rows_n else 0
 
         # 4. decode
         tokens_out = 0
@@ -905,9 +919,8 @@ class InferenceEngine:
             st.kv_util = self.pool.utilization()
         self._observe_step(st, clock.phases())
         self.history.append(st)
-        # a chunk call computes a (capacity, chunk) block on either backend
         clock.finish(kind="chunk" if rows_n else "decode",
-                     positions_computed=self.capacity * self.chunk if rows_n else 0,
+                     positions_computed=positions,
                      tokens_valid=sum(rows_n.values()))
         return st
 

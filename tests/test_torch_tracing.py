@@ -154,7 +154,13 @@ def test_step_counts_match_hand_counts(backend):
     attrs = [sp[0].attrs for sp in eng.tracer.step_spans()]
     chunk = [a for a in attrs if a["kind"] == "chunk"]
     assert [a["tokens_valid"] for a in chunk] == HAND[backend]
-    assert all(a["positions_computed"] == 4 * 16 for a in chunk)
+    if backend == "paged":
+        # the paged call computes the chunks of the rows it advances alone
+        rows = {st.t: st.chunk_rows for st in eng.history}
+        assert all(a["positions_computed"] == rows[a["now"]] * 16 for a in chunk)
+        assert [a["positions_computed"] for a in chunk] == [4 * 16, 2 * 16, 16]
+    else:
+        assert all(a["positions_computed"] == 4 * 16 for a in chunk)
     assert all(a["positions_computed"] == a["tokens_valid"] == 0
                for a in attrs if a["kind"] == "decode")
     assert len(attrs) > len(chunk)
